@@ -1,0 +1,40 @@
+"""PyTorch + CUDA port of the stereo vision engine, for NVIDIA Hopper.
+
+The dense stereo frame pipeline of ``ros_gpu_stereo_processor_tpu`` (the JAX
+package, which stays the reference) on torch tensors: mono conversion,
+bilinear rectification, X-Sobel prefilter and SAD block matching, the
+speckle filter, ``disparity_vis`` and the organised point cloud.  Three ops
+run hand-written CUDA kernels on a CUDA device (``csrc/``, built with nvcc
+at first use) and their plain PyTorch versions on the CPU.
+
+This package imports torch and numpy only; never jax and never the JAX
+package.
+"""
+
+from ros_gpu_stereo_processor_tpu_torch.config import (
+    Outputs,
+    PipelineConfig,
+    SpeckleConfig,
+    StereoBMConfig,
+    from_jax_config,
+)
+from ros_gpu_stereo_processor_tpu_torch.models.pipeline import StereoPipeline
+from ros_gpu_stereo_processor_tpu_torch.utils.calib import (
+    CameraCalib,
+    StereoCameraModel,
+)
+from ros_gpu_stereo_processor_tpu_torch.utils.io import synthetic_stereo_pair
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "CameraCalib",
+    "Outputs",
+    "PipelineConfig",
+    "SpeckleConfig",
+    "StereoBMConfig",
+    "StereoCameraModel",
+    "StereoPipeline",
+    "from_jax_config",
+    "synthetic_stereo_pair",
+]

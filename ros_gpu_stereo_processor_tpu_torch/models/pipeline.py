@@ -1,0 +1,403 @@
+"""The demand-driven stereo frame pipeline, in PyTorch.
+
+The port of ``ros_gpu_stereo_processor_tpu/models/pipeline.py``: the
+reference's orchestrator ``StereoProcessor::imageCb``
+(src/StereoProcessor.cpp:157-298) and engine ``GpuStereoProcessor``.
+
+  * The :class:`Outputs` flag-set selects the stages a frame runs; a stage
+    whose output nobody asked for is skipped, as in the reference's
+    demand-driven branches of imageCb.
+  * Both sides go through each stage together: one remap launch rectifies
+    the left and right images (the reference's two CUDA streams).
+  * Frames are enqueued on the current CUDA stream and not awaited: a frame
+    records a CUDA event, :meth:`FrameResult.fetch` waits on it, and
+    ``config.max_in_flight`` bounds how many frames may be outstanding.
+
+There is no device switch: each kernel-backed op dispatches on the device of
+its tensors (the kernel on CUDA, the plain version on the CPU), so a pipeline
+built for ``device="cuda"`` runs the three Hopper kernels and one built for
+``device="cpu"`` runs their plain versions.  The multi-device (``mesh``)
+branches, the SGM matcher and the bilateral filter are not ported yet
+(ROADMAP.md) and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from collections import deque
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ros_gpu_stereo_processor_tpu_torch.config import (
+    BilateralConfig,
+    Outputs,
+    PipelineConfig,
+    SpeckleConfig,
+    StereoBMConfig,
+    sanitize_reconfigure,
+)
+from ros_gpu_stereo_processor_tpu_torch.ops import color as color_ops
+from ros_gpu_stereo_processor_tpu_torch.ops import colormap as colormap_ops
+from ros_gpu_stereo_processor_tpu_torch.ops import remap_kernel
+from ros_gpu_stereo_processor_tpu_torch.ops import reproject as reproject_ops
+from ros_gpu_stereo_processor_tpu_torch.ops import speckle as speckle_ops
+from ros_gpu_stereo_processor_tpu_torch.ops import stereobm_kernel
+from ros_gpu_stereo_processor_tpu_torch.utils import msgs as msgs_mod
+from ros_gpu_stereo_processor_tpu_torch.utils.calib import StereoCameraModel
+from ros_gpu_stereo_processor_tpu_torch.utils.msgs import (
+    Header,
+    ImageMessage,
+    PointCloud2Message,
+    SenderPool,
+    make_disparity_message,
+)
+from ros_gpu_stereo_processor_tpu_torch.utils.timing import StageTimer, timed
+
+logger = logging.getLogger("tpu_stereo")
+
+SIDES = ("left", "right")
+
+
+def _pipeline_step(
+    left_raw: torch.Tensor,
+    right_raw: torch.Tensor,
+    rect_maps: torch.Tensor,     # (2, H, W, 2)
+    Q: torch.Tensor,             # (4, 4)
+    *,
+    encoding: str,
+    outputs: Outputs,
+    bm: StereoBMConfig,
+    speckle: SpeckleConfig,
+    bilateral: BilateralConfig = BilateralConfig(),
+) -> Dict[str, torch.Tensor]:
+    """One frame step: the stage DAG of imageCb (SURVEY.md §3.1), running
+    only the stages ``outputs`` needs."""
+    if bm.algorithm != "bm":
+        raise NotImplementedError(
+            "the SGM matcher is not ported yet (ROADMAP.md, Queue 1 item 9)")
+    if bilateral.enabled:
+        raise NotImplementedError(
+            "the bilateral filter is not ported yet (ROADMAP.md, Queue 1 item 10)")
+    res: Dict[str, torch.Tensor] = {}
+
+    def rectify(images: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        # every requested side in one remap launch
+        sides = list(images)
+        idx = [SIDES.index(s) for s in sides]
+        maps = rect_maps if idx == [0, 1] else rect_maps[idx]
+        out = remap_kernel.rectify(torch.stack([images[s] for s in sides]), maps)
+        return dict(zip(sides, out))
+
+    mono = {}
+    if outputs.needs_mono:
+        mono["left"] = color_ops.convert(left_raw, encoding, "mono8")
+        mono["right"] = color_ops.convert(right_raw, encoding, "mono8")
+        for side in SIDES:
+            if f"mono_{side}" in outputs:
+                res[f"mono_{side}"] = mono[side]
+
+    colr = {}
+    if outputs.needs_color:
+        colr["left"] = color_ops.convert(left_raw, encoding, "rgb8")
+        colr["right"] = color_ops.convert(right_raw, encoding, "rgb8")
+        for side in SIDES:
+            if f"color_{side}" in outputs:
+                res[f"color_{side}"] = colr[side]
+
+    rect_mono = {}
+    if outputs.needs_rect_mono:
+        rect_mono = rectify(mono)
+        for side in SIDES:
+            if f"rect_mono_{side}" in outputs:
+                res[f"rect_mono_{side}"] = rect_mono[side]
+
+    rect_color = {}
+    if outputs.needs_rect_color:
+        # the reference rectifies color only for requested sides + pc left
+        # (src/StereoProcessor.cpp:239-256)
+        need = [
+            s
+            for s in SIDES
+            if f"rect_color_{s}" in outputs or (s == "left" and "pointcloud" in outputs)
+        ]
+        rect_color = rectify({s: colr[s] for s in need})
+        for side in need:
+            if f"rect_color_{side}" in outputs:
+                res[f"rect_color_{side}"] = rect_color[side]
+
+    if outputs.needs_disparity:
+        disp, valid = stereobm_kernel.compute_disparity_fused(
+            rect_mono["left"], rect_mono["right"], bm
+        )
+        if speckle.enabled:
+            disp, valid = speckle_ops.filter_speckles(
+                disp,
+                valid,
+                max_speckle_size=speckle.max_speckle_size,
+                max_diff=speckle.max_diff,
+                iters=speckle.propagation_iters,
+                fill_value=float(bm.min_disparity - 1),
+            )
+        if "disparity" in outputs:
+            res["disparity"] = disp
+            res["disparity_valid"] = valid
+        if "disparity_vis" in outputs:
+            res["disparity_vis"] = colormap_ops.colorize_disparity(
+                disp, bm.num_disparities, valid
+            )
+        if "pointcloud" in outputs:
+            pc = reproject_ops.point_cloud(
+                disp, Q, rgb=rect_color.get("left"), valid=valid
+            )
+            res["pointcloud_xyz"] = pc["xyz"]
+            if "rgb" in pc:
+                res["pointcloud_rgb"] = pc["rgb"]
+
+    return res
+
+
+@dataclasses.dataclass
+class FrameResult:
+    """Device-tensor outputs of one frame step, with the CUDA event recorded
+    after its work (None on the CPU, where the step ran synchronously)."""
+
+    outputs: Dict[str, torch.Tensor]
+    header: Header
+    event: Optional[torch.cuda.Event] = None
+
+    def fetch(self) -> Dict[str, np.ndarray]:
+        """Wait for the frame and return its outputs as numpy arrays."""
+        self.block_until_ready()
+        return {k: msgs_mod.to_host(v) for k, v in self.outputs.items()}
+
+    def block_until_ready(self) -> "FrameResult":
+        if self.event is not None:
+            self.event.synchronize()
+        return self
+
+
+class StereoPipeline:
+    """The engine object: construct once with a stereo model (or with its
+    arrays, :meth:`from_arrays`) and a device, then ``process`` frames with
+    any demand flag-set."""
+
+    def __init__(
+        self,
+        model: StereoCameraModel,
+        config: PipelineConfig = PipelineConfig(),
+        device: torch.device | str = "cpu",
+    ):
+        self._setup(
+            model.rect_maps_stacked(), model.Q,
+            model.left.calib.width, model.left.calib.height,
+            model.fx, model.baseline, config, device,
+        )
+
+    @classmethod
+    def from_arrays(
+        cls,
+        rect_maps: np.ndarray,
+        Q: np.ndarray,
+        width: int,
+        height: int,
+        fx: float,
+        baseline: float,
+        config: PipelineConfig = PipelineConfig(),
+        device: torch.device | str = "cpu",
+    ) -> "StereoPipeline":
+        """A pipeline from a model's arrays: ``rect_maps`` (2, H, W, 2) float32
+        (``StereoCameraModel.rect_maps_stacked()``) and the 4×4 ``Q`` — of
+        this package's model or of the JAX package's, which are identical."""
+        self = cls.__new__(cls)
+        self._setup(rect_maps, Q, width, height, fx, baseline, config, device)
+        return self
+
+    def _setup(self, rect_maps, Q, width, height, fx, baseline, config, device):
+        rect_maps = np.asarray(rect_maps, np.float32)
+        if rect_maps.shape != (2, height, width, 2):
+            raise ValueError(
+                f"rect_maps {rect_maps.shape} != (2, {height}, {width}, 2)")
+        self.device = torch.device(device)
+        self.width, self.height = int(width), int(height)
+        self.fx, self.baseline = float(fx), float(baseline)
+        self.config = config
+        self._rect_maps = torch.from_numpy(rect_maps).to(self.device)
+        self._Q = torch.from_numpy(
+            np.asarray(Q).astype(np.float32)).to(self.device)
+        self.senders = SenderPool(
+            max_workers=max(1, config.publisher_queue_size + 1)
+        )
+        self.timer = StageTimer()
+        # bounded dispatch depth (config.max_in_flight): the reference syncs
+        # every frame (src/StereoProcessor.cpp:284); we keep up to
+        # max_in_flight frames outstanding and wait for the oldest before
+        # admitting a new one
+        self._in_flight: deque = deque()
+        logger.info(
+            "stereo model: %dx%d fx=%.2f baseline=%.4fm device=%s",
+            self.width, self.height, self.fx, self.baseline, self.device,
+        )
+
+    # -- live-tunable config (the dynamic_reconfigure role, SURVEY.md §2.19)
+    def reconfigure(self, **kw) -> None:
+        # accept the reference's full dynamic_reconfigure vocabulary
+        # (cfg/GPU.cfg:12-40) alongside our field names, with the reference
+        # configCb's sanitisation (window odd, range ×16)
+        kw = sanitize_reconfigure(kw)
+        bm_fields = {f.name for f in dataclasses.fields(StereoBMConfig)}
+        sp_fields = {f.name for f in dataclasses.fields(SpeckleConfig)}
+        bl_fields = {f.name for f in dataclasses.fields(BilateralConfig)}
+        unknown = set(kw) - bm_fields - sp_fields - bl_fields
+        if unknown:
+            raise ValueError(f"unknown reconfigure parameters: {sorted(unknown)}")
+        bm_kw = {k: v for k, v in kw.items() if k in bm_fields}
+        sp_kw = {k: v for k, v in kw.items() if k in sp_fields and k not in bm_fields}
+        bl_kw = {
+            k: v
+            for k, v in kw.items()
+            if k in bl_fields and k not in bm_fields and k not in sp_fields
+        }
+        cfg = self.config
+        if bm_kw:
+            cfg = cfg.replace(stereobm=cfg.stereobm.replace(**bm_kw))
+        if sp_kw:
+            cfg = cfg.replace(speckle=cfg.speckle.replace(**sp_kw))
+        if bl_kw:
+            cfg = cfg.replace(bilateral=cfg.bilateral.replace(**bl_kw))
+        self.config = cfg
+        # reconfigure summary line (reference: src/StereoProcessor.cpp:322)
+        logger.info("reconfigured: %s %s %s", cfg.stereobm, cfg.speckle, cfg.bilateral)
+
+    def _to_device(self, img) -> torch.Tensor:
+        if isinstance(img, torch.Tensor):
+            return img.to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
+
+    def _step(self, left, right, outputs: Outputs, encoding: str):
+        cfg = self.config
+        return _pipeline_step(
+            self._to_device(left), self._to_device(right),
+            self._rect_maps, self._Q,
+            encoding=encoding, outputs=outputs, bm=cfg.stereobm,
+            speckle=cfg.speckle, bilateral=cfg.bilateral,
+        )
+
+    def process(
+        self,
+        left,
+        right,
+        outputs: Outputs,
+        encoding: str = "mono8",
+        header: Optional[Header] = None,
+    ) -> FrameResult:
+        """Enqueue one frame and return without waiting for it — unless
+        ``config.max_in_flight`` frames are already outstanding, in which
+        case the oldest is waited for first (bounded pipelining)."""
+        out = self._step(left, right, outputs, encoding)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        res = FrameResult(outputs=out, header=header or Header(), event=event)
+        depth = max(1, self.config.max_in_flight)
+        self._in_flight.append(res)
+        while len(self._in_flight) > depth:
+            self._in_flight.popleft().block_until_ready()
+        return res
+
+    def process_batch(
+        self,
+        lefts,
+        rights,
+        outputs: Outputs,
+        encoding: str = "mono8",
+    ) -> Dict[str, torch.Tensor]:
+        """Process a batch of frames, lefts/rights (B, H, W[, C]), one frame
+        step after another.  Returns a dict of stacked outputs (B leading
+        axis)."""
+        steps = [self._step(lefts[i], rights[i], outputs, encoding)
+                 for i in range(len(lefts))]
+        return {k: torch.stack([s[k] for s in steps]) for k in steps[0]} if steps else {}
+
+    def timed_process(self, left, right, outputs, encoding="mono8", header=None):
+        """Synchronous process with timing — the TIMING instrumentation hook
+        (reference: src/StereoProcessor.cpp:288-297).  On a CUDA device the
+        time is read from CUDA events around the frame's work.  Accumulates
+        into ``self.timer`` and returns (FrameResult, total_ms)."""
+        res, ms = timed(
+            lambda: self.process(left, right, outputs, encoding, header).block_until_ready(),
+            self.device)
+        self.timer.stages[f"process[{len(outputs.flags)} outs]"].update(ms)
+        return res, ms
+
+    def timing_line(self) -> str:
+        return self.timer.timing_line()
+
+    # ------------------------------------------------------------------
+    # Async publish: enqueue outputs to the sender pool
+    # ------------------------------------------------------------------
+
+    def enqueue_send(self, res: FrameResult, outputs: Outputs) -> None:
+        """Register async message builds for every requested output —
+        the role of enqueueSendImage/Disparity/Points
+        (src/GPUStereoProcessor.cpp:210-234)."""
+        h = res.header
+        cfg = self.config.stereobm
+        H, W = self.height, self.width
+
+        def img_builder(enc):
+            return lambda a: ImageMessage(h, a.shape[0], a.shape[1], enc, a)
+
+        def send(name, arrays, build, ready=res.event):
+            self.senders.enqueue(name, arrays, build, ready=ready)
+
+        for name in outputs.flags:
+            if name.startswith(("mono_", "rect_mono_")):
+                send(name, res.outputs[name], img_builder("mono8"))
+            elif name.startswith(("color_", "rect_color_")):
+                send(name, res.outputs[name], img_builder("rgb8"))
+            elif name == "disparity":
+                wire = self._wire_disparity(res.outputs["disparity"])
+                ready = res.event
+                if ready is not None:
+                    # the wire codec is enqueued after the frame's event
+                    ready = torch.cuda.Event()
+                    ready.record()
+                send(
+                    name, wire,
+                    lambda a: make_disparity_message(
+                        h, a, cfg, self.fx, self.baseline, (H, W)
+                    ),
+                    ready,
+                )
+            elif name == "disparity_vis":
+                send(name, res.outputs[name], img_builder("rgb8"))
+            elif name == "pointcloud":
+                arrays = (res.outputs["pointcloud_xyz"],)
+                if "pointcloud_rgb" in res.outputs:
+                    arrays = arrays + (res.outputs["pointcloud_rgb"],)
+
+                def pc_builder(xyz, rgb=None):
+                    return PointCloud2Message(
+                        h, xyz.shape[0], xyz.shape[1], xyz, rgb
+                    )
+
+                send(name, arrays, pc_builder)
+
+    def _wire_disparity(self, disp: torch.Tensor) -> torch.Tensor:
+        """Quantize disparity on the device per ``config.disparity_wire``
+        before the device→host publish copy (the message builder decodes,
+        make_disparity_message)."""
+        wire = self.config.disparity_wire
+        if wire == "float32":
+            return disp
+        if wire == "fixed16":
+            return msgs_mod.disparity_fixed16(disp)
+        return msgs_mod.disparity_fixed8(
+            disp, min_disparity=int(self.config.stereobm.min_disparity))
+
+    def wait_all(self) -> None:
+        self.senders.wait_all()

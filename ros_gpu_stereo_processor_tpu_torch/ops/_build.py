@@ -1,0 +1,151 @@
+"""Build and bind the port's hand-written CUDA kernels (``csrc/*.cu``).
+
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` of the package into one
+shared library with a plain C interface (no PyTorch headers, so the build
+takes seconds), which ``ctypes`` loads.  The library goes into the package's
+``build/`` directory (git-ignored), under a name keyed by a hash of the
+sources and the flags, so an edited source is rebuilt and a stale library is
+never loaded.  Only the sources in the package are compiled.
+
+Every C entry point takes device pointers and the CUDA stream as
+``c_void_p`` and returns ``cudaGetLastError()`` after its launches;
+:class:`Kernel` raises when that is not 0.  Nothing here falls back: a
+missing ``nvcc``, a failed build or a refused launch raises.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` so that no
+multiply-add is contracted into an FMA — the kernels reproduce the plain
+PyTorch versions' float32 rounding step by step.  Never ``--use_fast_math``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_registry: Dict[str, "Kernel"] = {}
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _sources() -> List[Path]:
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libstereo_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile ``csrc/*.cu`` unless the library for these sources exists.
+    Returns its path; raises ``RuntimeError`` with nvcc's output on failure."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: a concurrent build never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", tmp, *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = ctypes.CDLL(str(build()))
+        return _lib
+
+
+class Kernel:
+    """One C entry point of the kernel library, with a launch counter.
+
+    ``launches`` is a plain integer that goes up by one each time the
+    wrapper launches its kernel, and nowhere else; ``chip_smoke.py`` zeroes
+    it before a run and reads it after, to show the run went through the
+    kernel.  ``argtypes`` are the ctypes of the C parameters (the stream,
+    last, is added here)."""
+
+    def __init__(self, symbol: str, argtypes: Sequence):
+        self.symbol = symbol
+        self.argtypes = list(argtypes) + [ctypes.c_void_p]
+        self.launches = 0
+        self._fn = None
+        _registry[symbol] = self
+
+    def __call__(self, *args) -> None:
+        import torch
+
+        if self._fn is None:
+            fn = getattr(library(), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        stream = torch.cuda.current_stream().cuda_stream
+        err = self._fn(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol}: CUDA error {err}")
+        self.launches += 1
+
+
+def kernels() -> Dict[str, Kernel]:
+    """Every kernel wrapper of the port, by C symbol."""
+    return dict(_registry)
+
+
+def reset_launch_counts() -> None:
+    for k in _registry.values():
+        k.launches = 0
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device pointer as a ``c_void_p``."""
+    return ctypes.c_void_p(t.data_ptr())

@@ -1,0 +1,125 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch versions,
+both on the card.  Every test needs a CUDA device and skips elsewhere (a
+CUDA kernel has no CPU mode); the parity of the plain versions with the JAX
+package is tested on the CPU by the other test_torch_* files.
+
+This file imports neither jax nor the JAX package, so it also runs on a
+machine without them:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+
+All comparisons are exact: the kernels repeat the plain versions' float32
+operations step by step (remap), sum small integers (block matcher) or move
+integer labels (speckle).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ros_gpu_stereo_processor_tpu_torch.config import StereoBMConfig
+from ros_gpu_stereo_processor_tpu_torch.ops import _build
+from ros_gpu_stereo_processor_tpu_torch.ops import remap
+from ros_gpu_stereo_processor_tpu_torch.ops import remap_kernel
+from ros_gpu_stereo_processor_tpu_torch.ops import speckle
+from ros_gpu_stereo_processor_tpu_torch.ops import speckle_kernel
+from ros_gpu_stereo_processor_tpu_torch.ops import stereobm
+from ros_gpu_stereo_processor_tpu_torch.ops import stereobm_kernel
+from ros_gpu_stereo_processor_tpu_torch.utils import calib
+from ros_gpu_stereo_processor_tpu_torch.utils.io import synthetic_stereo_pair
+
+torch.set_num_threads(1)
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _exact(got, want):
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _maps(H, W, D=(-0.37, 0.11, 0.001, -0.002, 0.0)):
+    f = 0.9 * W
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1.0]])
+    P = np.hstack([np.array([[0.95 * f, 0, W / 2 - 2], [0, 0.95 * f, H / 2 - 1],
+                             [0, 0, 1.0]]), np.zeros((3, 1))])
+    m = calib.undistort_rectify_map(K, np.array(D), np.eye(3), P, (W, H))
+    return np.stack([m, m[:, ::-1].copy()])
+
+
+@pytest.mark.parametrize("shape", [(60, 80), (37, 129), (480, 752)])
+def test_remap_kernel(dev, shape):
+    H, W = shape
+    rng = np.random.default_rng(1)
+    maps = torch.from_numpy(_maps(H, W)).to(dev)
+    for img in (rng.integers(0, 256, (2, H, W), np.uint8),
+                rng.integers(0, 256, (2, H, W, 3), np.uint8),
+                (rng.random((2, H, W)) * 300).astype(np.float32)):
+        imgs = torch.from_numpy(img).to(dev)
+        before = remap_kernel.KERNELS[imgs.dtype].launches
+        _exact(remap_kernel.rectify(imgs, maps), remap.rectify_pair(imgs, maps))
+        assert remap_kernel.KERNELS[imgs.dtype].launches == before + 1
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),                                                   # the default
+    dict(refine_disparity=True),
+    dict(uniqueness_ratio=15),
+    dict(num_disparities=32, block_size=9, min_disparity=-4),
+    dict(num_disparities=16, block_size=21, xsobel=False),
+])
+@pytest.mark.parametrize("shape", [(40, 112), (67, 301)])
+def test_bm_kernel(dev, kw, shape):
+    left, right, _ = synthetic_stereo_pair(*shape, max_disparity=40, seed=4)
+    cfg = StereoBMConfig(**kw)
+    lf = stereobm.prefilter(torch.from_numpy(left).to(dev), cfg)
+    rf = stereobm.prefilter(torch.from_numpy(right).to(dev), cfg)
+    for got, want in zip(stereobm_kernel.fused_raw(lf, rf, cfg),
+                         stereobm_kernel.fused_raw_plain(lf, rf, cfg)):
+        _exact(got, want)
+    d, v = stereobm_kernel.compute_disparity_fused(
+        torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev), cfg)
+    dp, vp = stereobm.compute_disparity(
+        torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev), cfg)
+    _exact(v, vp)
+    _exact(d, dp)
+
+
+def _speckle_case(shape, seed=7):
+    rng = np.random.default_rng(seed)
+    H, W = shape
+    disp = (rng.random(shape) * 40).astype(np.float32)
+    disp[H // 4:H // 2, W // 3:2 * W // 3] = 12.0     # one big component
+    # a winding corridor: needs many row/column rounds to converge
+    disp[::4, :] = 20.0
+    disp[1::4, -1] = 20.0
+    disp[3::4, 0] = 20.0
+    valid = rng.random(shape) > 0.25
+    valid[::4, :] = True
+    valid[1::4, -1] = True
+    valid[3::4, 0] = True
+    return disp, valid
+
+
+@pytest.mark.parametrize("iters", [1, 3, 64])
+@pytest.mark.parametrize("shape", [(40, 70), (37, 257), (9, 33), (480, 752)])
+def test_label_kernel(dev, shape, iters):
+    disp, valid = (torch.from_numpy(a).to(dev) for a in _speckle_case(shape))
+    got = speckle_kernel.labels(disp, valid, 5.0, iters)
+    _exact(got, speckle._labels_scan(disp, valid, 5.0, iters))
+
+
+def test_filter_speckles_counts_launches(dev):
+    disp, valid = (torch.from_numpy(a).to(dev) for a in _speckle_case((48, 96)))
+    _build.reset_launch_counts()
+    d, k = speckle.filter_speckles(disp, valid, 50, 5.0, 16, -1.0)
+    assert speckle_kernel.KERNEL.launches == 1
+    lab = speckle._labels_scan(disp.cpu(), valid.cpu(), 5.0, 16)
+    keep = speckle._keep_large_components(lab, 50) & valid.cpu()
+    _exact(k.cpu(), keep)
