@@ -7,26 +7,36 @@ Run from the root of a checkout, on a machine with one NVIDIA H100 (any
 CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
 
   1. requires a CUDA device and prints the card's name and power limit;
-  2. builds the three hand-written kernels from ``csrc/`` with nvcc;
+  2. builds the hand-written kernels from ``csrc/`` with nvcc (one process
+     per source, in parallel);
   3. holds each kernel against its plain PyTorch version, both on the card,
-     at the main path's shapes (752×480, 64 disparities, block 15):
-     K1 rectification remap (uint8 mono and RGB exact, float32 within
-     rtol 1e-6), K2 fused block matcher (disparity and validity exact, for
-     the default config, with ``refine_disparity`` and with
-     ``uniqueness_ratio=15``), K3 speckle labels at 64 iterations (exact);
-     and times both with CUDA events;
-  4. runs ``StereoPipeline`` on the card at 752×480, default config,
-     ``Outputs.all()``, over synthetic frames, checks that every kernel was
-     launched on every frame, and compares every output with the same
-     pipeline on CPU tensors (the plain versions): disparity, validity,
+     at the main paths' shapes (752×480, block 15) and times both with CUDA
+     events: K1 rectification remap (uint8 mono and RGB exact, float32
+     within rtol 1e-6), K2 fused block matcher at 64 disparities (raw maps
+     and gated output exact, default config, ``refine_disparity``,
+     ``uniqueness_ratio=15``), K3 speckle labels at 64 rounds (exact), and
+     the SGM kernels K4 cost + down path, K5 path aggregation (the frame's
+     three calls) and K6 winner-take-all at 64 and 128 disparities with
+     quantised storage and at 64 with float32 storage (P1 7.5, P2 93.25),
+     all exact;
+  4. runs ``StereoPipeline`` on the card at 752×480, ``Outputs.all()``, over
+     synthetic frames, for each main path:
+       * block matching (default config, 64 disparities): 41 frames, each
+         launching K1 twice, K2 and K3 once; 6 compared with the CPU run;
+       * SGM (4 paths, 128 disparities, block 15, texture 10): 21 frames,
+         each launching K1 twice, K3, K4 and K6 once and K5 three times, and
+         not K2; 2 compared with the CPU run;
+     and, with ``lr_check=True``, one BM frame (K2 twice) and one SGM frame,
+     each compared with the CPU run.  The comparison: disparity, validity,
      ``disparity_vis`` and the images exact, ``pointcloud_xyz`` with equal
      NaN positions and rtol 1e-5, ``pointcloud_rgb`` bitwise;
-  5. prints one JSON line with each kernel's launches, error and times, and
-     as its last line ``{"ok": true, "device": {...}}``.
+  5. prints the seconds of each phase, one JSON line per path with its
+     frame times, one JSON line with each kernel's launches, error, times
+     and bound, and as its last line ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` adds a ``torch.profiler`` window over a few pipelined
-frames, prints the device time by kernel and the device's busy share of the
-window, and writes the Chrome trace to ``DIR/trace.json``.
+frames of each path, prints the device time by kernel and the device's
+busy share of the window, and writes the Chrome traces under ``DIR``.
 
 Any failed phase raises, so the script exits nonzero and prints no result
 line.  It imports nothing of JAX.
@@ -35,6 +45,7 @@ line.  It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -44,14 +55,40 @@ import time
 
 import numpy as np
 
-FRAMES = 41         # frame 0 is the warm-up; 40 timed frames give a p75
-COMPARED = 6        # frames also run on the CPU and compared (≥ 5)
+FRAMES = 41         # BM path: frame 0 is the warm-up; 40 timed frames give a p75
+COMPARED = 6        # BM frames also run on the CPU and compared
+SGM_FRAMES = 21     # SGM path: 1 warm-up + 20 timed
+SGM_COMPARED = 2
 KERNEL_REPS = 20
 PLAIN_REPS = 3
+H, W = 480, 752
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory and
+# float32 outside the tensor cores.  A bound is the larger of bytes / rate
+# and operations / rate: each input read once, each output written once.
+HBM_BYTES_PER_MS = 3.35e9
+FP32_OPS_PER_MS = 67e9
+
+SOURCES = {   # key: (C entry point, CUDA source, TPU kernel it replaces)
+    "K1": ("remap_bilinear_u8", "csrc/remap.cu", "ops/remap_pallas.py:154"),
+    "K2": ("bm_fused", "csrc/stereobm.cu", "ops/stereobm_pallas.py:153"),
+    "K3": ("speckle_labels", "csrc/speckle.cu", "ops/speckle_pallas.py:104"),
+    "K4": ("sgm_cost_down", "csrc/sgm.cu", "ops/sgm_pallas.py:191"),
+    "K5": ("sgm_aggregate", "csrc/sgm.cu", "ops/sgm_pallas.py:349"),
+    "K6": ("sgm_wta", "csrc/sgm.cu", "ops/sgm_pallas.py:432"),
+}
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+@contextlib.contextmanager
+def phase(name, seconds):
+    t0 = time.perf_counter()
+    yield
+    seconds[name] = time.perf_counter() - t0
+    log(f"phase {name}: {seconds[name]:.1f} s")
 
 
 def card_line() -> str:
@@ -72,7 +109,7 @@ def euroc_like_model(calib):
     D = np.array([-0.37, 0.11, 0.0, 0.0, 0.0])
 
     def mk(PP, name):
-        return calib.CameraCalib(752, 480, K, D, np.eye(3), PP, name)
+        return calib.CameraCalib(W, H, K, D, np.eye(3), PP, name)
 
     return calib.StereoCameraModel.from_calibs(mk(P, "left"), mk(Pr, "right"))
 
@@ -91,11 +128,19 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, nops: float):
+    """(least ms, what sets it) for moving ``nbytes`` and doing ``nops``."""
+    b, o = nbytes / HBM_BYTES_PER_MS, nops / FP32_OPS_PER_MS
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
 def require_equal(name, got, want):
+    """Same shape, dtype and values (storage volumes compared in float32,
+    which holds each of their values exactly)."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{name}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
-    if not bool((got == want).all()):
-        n = int((got != want).sum())
+    if not bool((got.float() == want.float()).all()):
+        n = int((got.float() != want.float()).sum())
         raise AssertionError(f"{name}: {n} elements differ")
 
 
@@ -103,7 +148,76 @@ def max_abs(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def profile_frames(torch, timing, pipe, frames, outputs, log_dir, top=15):
+def compare_outputs(got, want, label):
+    """A card frame's outputs against the CPU run's."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: output keys {sorted(got)} vs {sorted(want)}")
+    for k in want:
+        g, w = got[k], want[k]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{label} {k}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
+        if k == "pointcloud_rgb":
+            ok = np.array_equal(g.view(np.int32), w.view(np.int32))
+        elif k == "pointcloud_xyz":
+            ok = (np.array_equal(np.isnan(g), np.isnan(w))
+                  and np.allclose(g, w, rtol=1e-5, atol=0, equal_nan=True))
+        else:
+            ok = np.array_equal(g, w)
+        if not ok:
+            raise AssertionError(f"{label} {k}: card and CPU runs differ")
+    d = got["disparity"]
+    if d.shape != (H, W) or not np.isfinite(d).all() or not got["disparity_valid"].any():
+        raise AssertionError(f"{label}: bad disparity")
+    log(f"{label}: every output matches the CPU run; "
+        f"valid {float(got['disparity_valid'].mean()):.4f}")
+
+
+def drive(torch, _build, pipe, frames, outputs, per_frame, keep):
+    """The main path: every count set to 0 just before, read just after.
+    Each frame must launch each kernel of ``per_frame`` exactly that many
+    times.  Returns (per-frame ms, fetched outputs of the first ``keep``
+    frames, launches over the run)."""
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    per_frame_ms, kept = [], []
+    for i, (left, right) in enumerate(frames):
+        before = {k: kern.launches for k, (kern, _) in per_frame.items()}
+        res, ms = pipe.timed_process(left, right, outputs)
+        for k, (kern, n) in per_frame.items():
+            if kern.launches - before[k] != n:
+                raise AssertionError(f"frame {i}: {k} launched "
+                                     f"{kern.launches - before[k]} times, not {n}")
+        per_frame_ms.append(ms)
+        if i < keep:
+            kept.append(res.fetch())
+    return per_frame_ms, kept, {k: kern.launches for k, (kern, _) in per_frame.items()}
+
+
+def summary(label, per_frame_ms, pipelined_ms):
+    steady = per_frame_ms[1:]
+    median = statistics.median(steady)
+    p75 = float(np.percentile(steady, 75))
+    log(f"{label} per-frame ms (frame 0 warm-up excluded): {[round(x, 3) for x in steady]}")
+    log(f"{label} e2e over {len(steady)} frames: median {median:.3f} ms/frame "
+        f"({1e3 / median:.1f} fps), p75 {p75:.3f} ms, pipelined {pipelined_ms:.3f} "
+        f"ms/frame, first frame {per_frame_ms[0]:.3f} ms")
+    return {"path": label, "e2e_frames": len(steady), "e2e_median_ms": median,
+            "e2e_p75_ms": p75, "e2e_pipelined_ms": pipelined_ms,
+            "e2e_first_frame_ms": per_frame_ms[0]}
+
+
+def pipelined(torch, pipe, frames, outputs):
+    """Host ms per frame with frames enqueued back to back."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for left, right in frames:
+        last = pipe.process(left, right, outputs)
+    last.block_until_ready()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / len(frames)
+
+
+def profile_frames(torch, timing, pipe, frames, outputs, log_dir, label, top=15):
     """Device time by kernel over pipelined frames, and the device's busy
     share of the window's wall time (host clock around work that ends in a
     synchronize).  The Chrome trace goes to ``log_dir``."""
@@ -119,24 +233,91 @@ def profile_frames(torch, timing, pipe, frames, outputs, log_dir, top=15):
             for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
     if not rows:
-        log("profile: the profiler recorded no device time (not measured)")
+        log(f"profile {label}: the profiler recorded no device time (not measured)")
         return
     busy_ms = sum(r[2] for r in rows)
     n = len(frames)
-    log(f"profile over {n} frames: wall {wall_ms / n:.3f} ms/frame, device busy "
+    log(f"profile {label} over {n} frames: wall {wall_ms / n:.3f} ms/frame, device busy "
         f"{busy_ms / n:.3f} ms/frame ({100 * busy_ms / wall_ms:.1f} %), "
         f"{sum(r[1] for r in rows) / n:.0f} kernels and copies/frame")
     for key, count, ms in sorted(rows, key=lambda r: -r[2])[:top]:
         log(f"  {ms / n:8.4f} ms/frame  {count / n:6.1f}/frame  {key[:90]}")
 
 
+def check_sgm_kernels(torch, sgm_kernel, stereobm, rect, cfg, p1, p2):
+    """K4, K5 (the frame's three calls) and K6 against their plain versions
+    on the card, exact; then their times and bounds."""
+    lf = stereobm.prefilter(rect[0], cfg)
+    rf = stereobm.prefilter(rect[1], cfg)
+    cdt, edt = sgm_kernel.storage_dtypes(cfg, p1, p2, True)
+    cost, down = sgm_kernel.cost_and_down(lf, rf, cfg, p1, p2, cdt, edt)
+    cost_p, down_p = sgm_kernel.cost_and_down_plain(lf, rf, cfg, p1, p2, cdt, edt)
+    torch.cuda.synchronize()
+    require_equal("K4 cost", cost, cost_p)
+    require_equal("K4 exc_down", down, down_p)
+    err = {"K4": max(max_abs(cost, cost_p), max_abs(down, down_p)), "K5": 0.0, "K6": 0.0}
+
+    def aggregate(name, exc_in, vertical, reverse):
+        args = (cost, exc_in, p1, p2, vertical, reverse, edt)
+        got = sgm_kernel.aggregate(*args)
+        want = sgm_kernel.aggregate_plain(*args)
+        torch.cuda.synchronize()
+        require_equal(f"K5 {name}", got, want)
+        err["K5"] = max(err["K5"], max_abs(got, want))
+        return got
+
+    ev = aggregate("up + down", down, True, True)
+    lr = aggregate("left-right", None, False, False)
+    eh = aggregate("right-left + left-right", lr, False, True)
+    for c in (cfg, cfg.replace(refine_disparity=True, uniqueness_ratio=10)):
+        got = sgm_kernel.wta(cost, ev, eh, c)
+        want = sgm_kernel.wta_plain(cost, ev, eh, c)
+        torch.cuda.synchronize()
+        for a, b, nm in zip(got, want, ("disp_raw", "best_cost", "excl")):
+            require_equal(f"K6 {nm} refine={c.refine_disparity}", a, b)
+            err["K6"] = max(err["K6"], max_abs(a, b))
+
+    def k5(fn):
+        def run():
+            ev = fn(cost, down, p1, p2, True, True, edt)
+            lr = fn(cost, None, p1, p2, False, False, edt)
+            return ev, fn(cost, lr, p1, p2, False, True, edt)
+        return run
+
+    nd = cfg.num_disparities
+    cs, es = cost.element_size(), down.element_size()
+    vol = H * W * nd
+    work = {   # (bytes, operations), per call
+        "K4": (2 * H * W * 4 + vol * (cs + es), 16 * vol),
+        "K5": (vol * (cs + 5 * es / 3), 10 * vol),    # mean of the frame's 3 calls
+        "K6": (vol * (cs + 2 * es) + 3 * H * W * 4, 7 * vol),
+    }
+    times = {
+        "K4": (cuda_ms(torch, lambda: sgm_kernel.cost_and_down(lf, rf, cfg, p1, p2, cdt, edt),
+                       KERNEL_REPS),
+               cuda_ms(torch, lambda: sgm_kernel.cost_and_down_plain(lf, rf, cfg, p1, p2,
+                                                                     cdt, edt), PLAIN_REPS)),
+        "K5": (cuda_ms(torch, k5(sgm_kernel.aggregate), KERNEL_REPS) / 3,
+               cuda_ms(torch, k5(sgm_kernel.aggregate_plain), PLAIN_REPS) / 3),
+        "K6": (cuda_ms(torch, lambda: sgm_kernel.wta(cost, ev, eh, cfg), KERNEL_REPS),
+               cuda_ms(torch, lambda: sgm_kernel.wta_plain(cost, ev, eh, cfg), PLAIN_REPS)),
+    }
+    out = {}
+    for k in ("K4", "K5", "K6"):
+        b_ms, by = bound(*work[k])
+        out[k] = {"max_abs_err": err[k], "ms": times[k][0], "plain_ms": times[k][1],
+                  "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="also trace a few frames, print device time by kernel "
-                         "and write the Chrome trace into DIR")
+                    help="also trace a few frames of each path, print device time by "
+                         "kernel and write the Chrome traces under DIR")
     args = ap.parse_args()
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -144,7 +325,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import ros_gpu_stereo_processor_tpu_torch as port
     from ros_gpu_stereo_processor_tpu_torch.ops import (
-        _build, remap, remap_kernel, speckle, speckle_kernel, stereobm,
+        _build, remap, remap_kernel, sgm_kernel, speckle, speckle_kernel, stereobm,
         stereobm_kernel,
     )
     from ros_gpu_stereo_processor_tpu_torch.utils import calib, timing
@@ -154,177 +335,211 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    t_start = time.perf_counter()
+    seconds = {}
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     log(f"card: {card_line()}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
 
-    # -- build ------------------------------------------------------------
-    t0 = time.perf_counter()
-    lib = _build.build(verbose=True)
-    log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    with phase("build", seconds):
+        lib = _build.build(verbose=True)
+        log(f"build: {lib.name}")
 
     model = euroc_like_model(calib)
     maps = torch.from_numpy(model.rect_maps_stacked()).to(dev)
-    H, W = 480, 752
     results = {}
 
     # -- K1 remap -----------------------------------------------------------
-    l0, r0, _ = port.synthetic_stereo_pair(H, W, 48, seed=100)
-    mono = torch.from_numpy(np.stack([l0, r0])).to(dev)
-    rgb = torch.from_numpy(
-        np.random.default_rng(1).integers(0, 256, (2, H, W, 3), np.uint8)).to(dev)
-    errs = []
-    for label, imgs in (("mono", mono), ("rgb", rgb)):
-        got = remap_kernel.rectify(imgs, maps)
-        want = remap.rectify_pair(imgs, maps)
+    with phase("K1", seconds):
+        l0, r0, _ = port.synthetic_stereo_pair(H, W, 48, seed=100)
+        mono = torch.from_numpy(np.stack([l0, r0])).to(dev)
+        rgb = torch.from_numpy(
+            np.random.default_rng(1).integers(0, 256, (2, H, W, 3), np.uint8)).to(dev)
+        errs = []
+        for label, imgs in (("mono", mono), ("rgb", rgb)):
+            got = remap_kernel.rectify(imgs, maps)
+            want = remap.rectify_pair(imgs, maps)
+            torch.cuda.synchronize()
+            require_equal(f"K1 {label}", got, want)
+            errs.append(max_abs(got, want))
+        f32 = mono.float() * 0.37
+        got = remap_kernel.rectify(f32, maps)
+        want = remap.rectify_pair(f32, maps)
         torch.cuda.synchronize()
-        require_equal(f"K1 {label}", got, want)
-        errs.append(max_abs(got, want))
-    f32 = mono.float() * 0.37
-    got = remap_kernel.rectify(f32, maps)
-    want = remap.rectify_pair(f32, maps)
-    torch.cuda.synchronize()
-    if not torch.allclose(got, want, rtol=1e-6, atol=0):
-        raise AssertionError(f"K1 float32: max |diff| {max_abs(got, want)}")
-    log(f"K1 remap float32 max |diff| {max_abs(got, want)} (rtol 1e-6)")
-    results["K1"] = {
-        "max_abs_err": max(errs),
-        "ms": cuda_ms(torch, lambda: remap_kernel.rectify(mono, maps), KERNEL_REPS),
-        "plain_ms": cuda_ms(torch, lambda: remap.rectify_pair(mono, maps), PLAIN_REPS),
-    }
-    log("K1 remap: uint8 mono and RGB exact;", results["K1"])
+        if not torch.allclose(got, want, rtol=1e-6, atol=0):
+            raise AssertionError(f"K1 float32: max |diff| {max_abs(got, want)}")
+        log(f"K1 remap float32 max |diff| {max_abs(got, want)} (rtol 1e-6)")
+        # the yardstick: grid_sample (bilinear, zeros, align_corners) on the
+        # same maps, float32 (it has no uint8 mode); the port never calls it
+        img_f = mono.float()[:, None]
+        scale = torch.tensor([2.0 / (W - 1), 2.0 / (H - 1)], device=dev)
+        grid = maps * scale - 1.0
+        b_ms, by = bound(2 * H * W * (1 + 8 + 1), 20 * 2 * H * W)
+        results["K1"] = {
+            "max_abs_err": max(errs),
+            "ms": cuda_ms(torch, lambda: remap_kernel.rectify(mono, maps), KERNEL_REPS),
+            "plain_ms": cuda_ms(torch, lambda: remap.rectify_pair(mono, maps), PLAIN_REPS),
+            "bound_ms": b_ms, "bound_by": by,
+            "library_ms": cuda_ms(torch, lambda: F.grid_sample(
+                img_f, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
+                KERNEL_REPS),
+        }
+        log("K1 remap: uint8 mono and RGB exact;", results["K1"])
 
     # -- K2 fused block matcher -------------------------------------------
-    rect = remap_kernel.rectify(mono, maps)
-    base = port.StereoBMConfig()
-    errs = []
-    for cfg in (base, base.replace(refine_disparity=True),
-                base.replace(uniqueness_ratio=15)):
-        d, v = stereobm_kernel.compute_disparity_fused(rect[0], rect[1], cfg)
-        dp, vp = stereobm.compute_disparity(rect[0], rect[1], cfg)
-        torch.cuda.synchronize()
-        require_equal(f"K2 valid {cfg}", v, vp)
-        require_equal(f"K2 disp {cfg}", d, dp)
-        errs.append(max_abs(d, dp))
-        log(f"K2 exact: refine={cfg.refine_disparity} uniq={cfg.uniqueness_ratio} "
-            f"valid {float(v.float().mean()):.4f}")
-    lf = stereobm.prefilter(rect[0], base)
-    rf = stereobm.prefilter(rect[1], base)
-    raw = stereobm_kernel.fused_raw(lf, rf, base)
-    raw_plain = stereobm_kernel.fused_raw_plain(lf, rf, base)
-    for a, b, nm in zip(raw, raw_plain, ("disp_raw", "best_cost", "excl")):
-        require_equal(f"K2 {nm}", a, b)
-    results["K2"] = {
-        "max_abs_err": max(errs),
-        "ms": cuda_ms(torch, lambda: stereobm_kernel.fused_raw(lf, rf, base), KERNEL_REPS),
-        "plain_ms": cuda_ms(torch, lambda: stereobm_kernel.fused_raw_plain(lf, rf, base),
-                            PLAIN_REPS),
-    }
-    log("K2 block matcher: raw maps and gated output exact;", results["K2"])
+    with phase("K2", seconds):
+        rect = remap_kernel.rectify(mono, maps)
+        base = port.StereoBMConfig()
+        errs = []
+        for cfg in (base, base.replace(refine_disparity=True),
+                    base.replace(uniqueness_ratio=15)):
+            d, v = stereobm_kernel.compute_disparity_fused(rect[0], rect[1], cfg)
+            dp, vp = stereobm.compute_disparity(rect[0], rect[1], cfg)
+            torch.cuda.synchronize()
+            require_equal(f"K2 valid {cfg}", v, vp)
+            require_equal(f"K2 disp {cfg}", d, dp)
+            errs.append(max_abs(d, dp))
+            log(f"K2 exact: refine={cfg.refine_disparity} uniq={cfg.uniqueness_ratio} "
+                f"valid {float(v.float().mean()):.4f}")
+        lf = stereobm.prefilter(rect[0], base)
+        rf = stereobm.prefilter(rect[1], base)
+        raw = stereobm_kernel.fused_raw(lf, rf, base)
+        raw_plain = stereobm_kernel.fused_raw_plain(lf, rf, base)
+        for a, b, nm in zip(raw, raw_plain, ("disp_raw", "best_cost", "excl")):
+            require_equal(f"K2 {nm}", a, b)
+        b_ms, by = bound(5 * H * W * 4, 8 * H * W * base.num_disparities)
+        results["K2"] = {
+            "max_abs_err": max(errs),
+            "ms": cuda_ms(torch, lambda: stereobm_kernel.fused_raw(lf, rf, base), KERNEL_REPS),
+            "plain_ms": cuda_ms(torch, lambda: stereobm_kernel.fused_raw_plain(lf, rf, base),
+                                PLAIN_REPS),
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+        }
+        log("K2 block matcher: raw maps and gated output exact;", results["K2"])
 
     # -- K3 speckle labels ------------------------------------------------
-    disp, valid = stereobm_kernel.compute_disparity_fused(rect[0], rect[1], base)
-    sp = port.SpeckleConfig()
-    lab = speckle_kernel.labels(disp, valid, sp.max_diff, sp.propagation_iters)
-    lab_plain = speckle._labels_scan(disp, valid, sp.max_diff, sp.propagation_iters)
-    torch.cuda.synchronize()
-    require_equal("K3 labels", lab, lab_plain)
-    results["K3"] = {
-        "max_abs_err": max_abs(lab, lab_plain),
-        "ms": cuda_ms(torch, lambda: speckle_kernel.labels(
-            disp, valid, sp.max_diff, sp.propagation_iters), KERNEL_REPS),
-        "plain_ms": cuda_ms(torch, lambda: speckle._labels_scan(
-            disp, valid, sp.max_diff, sp.propagation_iters), PLAIN_REPS),
-    }
-    log("K3 speckle labels: exact;", results["K3"])
+    with phase("K3", seconds):
+        disp, valid = stereobm_kernel.compute_disparity_fused(rect[0], rect[1], base)
+        sp = port.SpeckleConfig()
+        lab = speckle_kernel.labels(disp, valid, sp.max_diff, sp.propagation_iters)
+        lab_plain = speckle._labels_scan(disp, valid, sp.max_diff, sp.propagation_iters)
+        torch.cuda.synchronize()
+        require_equal("K3 labels", lab, lab_plain)
+        # the rounds this frame needs: the first count that gives the final labels
+        rounds = next(k for k in range(1, sp.propagation_iters + 1)
+                      if torch.equal(speckle_kernel.labels(disp, valid, sp.max_diff, k), lab))
+        b_ms, by = bound(H * W * (4 + 1 + 4), 2 * 2 * rounds * H * W)
+        results["K3"] = {
+            "max_abs_err": max_abs(lab, lab_plain),
+            "ms": cuda_ms(torch, lambda: speckle_kernel.labels(
+                disp, valid, sp.max_diff, sp.propagation_iters), KERNEL_REPS),
+            "plain_ms": cuda_ms(torch, lambda: speckle._labels_scan(
+                disp, valid, sp.max_diff, sp.propagation_iters), PLAIN_REPS),
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+        }
+        log(f"K3 speckle labels: exact; converged in {rounds} rounds;", results["K3"])
 
-    # -- end to end ---------------------------------------------------------
-    outputs = port.Outputs.all()
+    # -- K4–K6 SGM ----------------------------------------------------------
+    with phase("K4-K6", seconds):
+        for nd, p1, p2 in ((64, 10.0, 120.0), (64, 7.5, 93.25), (128, 10.0, 120.0)):
+            cfg = port.StereoBMConfig(num_disparities=nd, block_size=15)
+            res = check_sgm_kernels(torch, sgm_kernel, stereobm, rect, cfg, p1, p2)
+            storage = sgm_kernel.storage_dtypes(cfg, p1, p2, True)
+            log(f"SGM kernels exact at {nd} disparities, P1 {p1}, P2 {p2}, storage "
+                f"{storage}: " + json.dumps(res))
+        results.update(res)       # the last case is the SGM main path's shape
+
     arrays = (model.rect_maps_stacked(), model.Q, W, H, model.fx, model.baseline)
-    pipe = port.StereoPipeline.from_arrays(*arrays, device=dev)
-    cpu_pipe = port.StereoPipeline.from_arrays(*arrays, device="cpu")
-    frames = [port.synthetic_stereo_pair(H, W, 48, seed=i)[:2] for i in range(FRAMES)]
-    path = {
-        "K1": remap_kernel.KERNELS[torch.uint8],
-        "K2": stereobm_kernel.KERNEL,
-        "K3": speckle_kernel.KERNEL,
-    }
-    torch.cuda.synchronize()
-    _build.reset_launch_counts()
-    per_frame_ms, gpu_out = [], []
-    for i, (left, right) in enumerate(frames):
-        before = {k: kern.launches for k, kern in path.items()}
-        res, ms = pipe.timed_process(left, right, outputs)
-        for k, kern in path.items():
-            if kern.launches <= before[k]:
-                raise AssertionError(f"frame {i}: {k} was not launched")
-        per_frame_ms.append(ms)
-        if i < COMPARED:
-            gpu_out.append(res.fetch())
-    launches = {k: kern.launches for k, kern in path.items()}
-    log(f"launches over {FRAMES} frames: {launches}")
+    pipes = []
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for left, right in frames:
-        last = pipe.process(left, right, outputs)
-    last.block_until_ready()
-    torch.cuda.synchronize()
-    pipelined_ms = (time.perf_counter() - t0) * 1e3 / FRAMES
+    def new_pipe(**kw):
+        pipes.append(port.StereoPipeline.from_arrays(*arrays, **kw))
+        return pipes[-1]
 
-    for i in range(COMPARED):
-        want = cpu_pipe.process(*frames[i], outputs).fetch()
-        got = gpu_out[i]
-        if sorted(got) != sorted(want):
-            raise AssertionError(f"output keys {sorted(got)} vs {sorted(want)}")
-        for k in want:
-            g, w = got[k], want[k]
-            if g.shape != w.shape or g.dtype != w.dtype:
-                raise AssertionError(f"frame {i} {k}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
-            if k == "pointcloud_rgb":
-                ok = np.array_equal(g.view(np.int32), w.view(np.int32))
-            elif k == "pointcloud_xyz":
-                ok = (np.array_equal(np.isnan(g), np.isnan(w))
-                      and np.allclose(g, w, rtol=1e-5, atol=0, equal_nan=True))
-            else:
-                ok = np.array_equal(g, w)
-            if not ok:
-                raise AssertionError(f"frame {i} {k}: GPU and CPU runs differ")
-        d = got["disparity"]
-        if d.shape != (H, W) or not np.isfinite(d).all() or not got["disparity_valid"].any():
-            raise AssertionError(f"frame {i}: bad disparity")
-        log(f"frame {i}: every output matches the CPU run; "
-            f"valid {float(got['disparity_valid'].mean()):.4f}")
+    outputs = port.Outputs.all()
+    k1 = remap_kernel.KERNELS[torch.uint8]
+    launches, e2e = {}, []
 
-    steady = per_frame_ms[1:]
-    median = statistics.median(steady)
-    p75 = float(np.percentile(steady, 75))
-    log(f"per-frame ms (frame 0 warm-up excluded): {[round(x, 3) for x in steady]}")
-    log(f"e2e over {len(steady)} frames: median {median:.3f} ms/frame "
-        f"({1e3 / median:.1f} fps), p75 {p75:.3f} ms, pipelined {pipelined_ms:.3f} "
-        f"ms/frame, first frame {per_frame_ms[0]:.3f} ms")
-    if args.profile:
-        profile_frames(torch, timing, pipe, frames[1:11], outputs, args.profile)
-    pipe.senders.shutdown()
-    cpu_pipe.senders.shutdown()
+    # -- BM end to end -------------------------------------------------------
+    with phase("BM e2e", seconds):
+        pipe = new_pipe(device=dev)
+        cpu_pipe = new_pipe(device="cpu")
+        frames = [port.synthetic_stereo_pair(H, W, 48, seed=i)[:2] for i in range(FRAMES)]
+        per_frame = {"K1": (k1, 2), "K2": (stereobm_kernel.KERNEL, 1),
+                     "K3": (speckle_kernel.KERNEL, 1)}
+        bm_ms, gpu_out, launches["bm"] = drive(torch, _build, pipe, frames, outputs,
+                                               per_frame, COMPARED)
+        log(f"BM launches over {FRAMES} frames: {launches['bm']}")
+        bm_pipelined = pipelined(torch, pipe, frames, outputs)
+        for i in range(COMPARED):
+            compare_outputs(gpu_out[i], cpu_pipe.process(*frames[i], outputs).fetch(),
+                            f"BM frame {i}")
+        e2e.append(summary("bm", bm_ms, bm_pipelined))
+        if args.profile:
+            profile_frames(torch, timing, pipe, frames[1:11], outputs,
+                           os.path.join(args.profile, "bm"), "bm")
 
-    source = {
-        "K1": ("remap_bilinear_u8", "ros_gpu_stereo_processor_tpu_torch/csrc/remap.cu",
-               "ros_gpu_stereo_processor_tpu/ops/remap_pallas.py:154"),
-        "K2": ("bm_fused", "ros_gpu_stereo_processor_tpu_torch/csrc/stereobm.cu",
-               "ros_gpu_stereo_processor_tpu/ops/stereobm_pallas.py:153"),
-        "K3": ("speckle_labels", "ros_gpu_stereo_processor_tpu_torch/csrc/speckle.cu",
-               "ros_gpu_stereo_processor_tpu/ops/speckle_pallas.py:104"),
-    }
-    kernels = [
-        {"name": source[k][0], "route": "cuda", "source": source[k][1],
-         "replaces": source[k][2], "launches": launches[k], **results[k]}
-        for k in ("K1", "K2", "K3")
-    ]
-    log(json.dumps({"e2e_frames": len(steady), "e2e_median_ms": median,
-                    "e2e_p75_ms": p75, "e2e_pipelined_ms": pipelined_ms,
-                    "e2e_first_frame_ms": per_frame_ms[0]}))
+    with phase("BM lr_check", seconds):
+        cfg = port.PipelineConfig(stereobm=port.StereoBMConfig(lr_check=True))
+        lr_pipe = new_pipe(config=cfg, device=dev)
+        lr_cpu = new_pipe(config=cfg, device="cpu")
+        per_frame = {"K2": (stereobm_kernel.KERNEL, 2)}
+        _, got, _ = drive(torch, _build, lr_pipe, frames[:1], outputs, per_frame, 1)
+        compare_outputs(got[0], lr_cpu.process(*frames[0], outputs).fetch(),
+                        "BM lr_check frame 0")
+
+    # -- SGM end to end ------------------------------------------------------
+    with phase("SGM e2e", seconds):
+        sgm_bm = port.StereoBMConfig(algorithm="sgm", sgm_paths=4, num_disparities=128)
+        cfg = port.PipelineConfig(stereobm=sgm_bm)
+        spipe = new_pipe(config=cfg, device=dev)
+        scpu = new_pipe(config=cfg, device="cpu")
+        sframes = [port.synthetic_stereo_pair(H, W, 96, seed=1000 + i)[:2]
+                   for i in range(SGM_FRAMES)]
+        per_frame = {"K1": (k1, 2), "K2": (stereobm_kernel.KERNEL, 0),
+                     "K3": (speckle_kernel.KERNEL, 1), "K4": (sgm_kernel.COST_DOWN, 1),
+                     "K5": (sgm_kernel.AGGREGATE, 3), "K6": (sgm_kernel.WTA, 1)}
+        sgm_ms, gpu_out, launches["sgm"] = drive(torch, _build, spipe, sframes, outputs,
+                                                 per_frame, SGM_COMPARED)
+        log(f"SGM launches over {SGM_FRAMES} frames: {launches['sgm']}")
+        sgm_pipelined = pipelined(torch, spipe, sframes, outputs)
+        for i in range(SGM_COMPARED):
+            compare_outputs(gpu_out[i], scpu.process(*sframes[i], outputs).fetch(),
+                            f"SGM frame {i}")
+        e2e.append(summary("sgm", sgm_ms, sgm_pipelined))
+        if args.profile:
+            profile_frames(torch, timing, spipe, sframes[1:6], outputs,
+                           os.path.join(args.profile, "sgm"), "sgm")
+
+    with phase("SGM lr_check", seconds):
+        cfg = port.PipelineConfig(stereobm=sgm_bm.replace(lr_check=True))
+        lr_pipe = new_pipe(config=cfg, device=dev)
+        lr_cpu = new_pipe(config=cfg, device="cpu")
+        per_frame = {"K4": (sgm_kernel.COST_DOWN, 1), "K5": (sgm_kernel.AGGREGATE, 3),
+                     "K6": (sgm_kernel.WTA, 0)}
+        _, got, _ = drive(torch, _build, lr_pipe, sframes[:1], outputs, per_frame, 1)
+        compare_outputs(got[0], lr_cpu.process(*sframes[0], outputs).fetch(),
+                        "SGM lr_check frame 0")
+
+    for p in pipes:
+        p.senders.shutdown()
+
+    kernels = []
+    for k in ("K1", "K2", "K3", "K4", "K5", "K6"):
+        sym, src, tpu = SOURCES[k]
+        path = "bm" if k in ("K1", "K2", "K3") else "sgm"
+        kernels.append({
+            "name": sym, "route": "cuda",
+            "source": f"ros_gpu_stereo_processor_tpu_torch/{src}",
+            "replaces": f"ros_gpu_stereo_processor_tpu/{tpu}",
+            "launches": launches[path][k], "path": path,
+            "launches_by_path": {p: n[k] for p, n in launches.items() if k in n},
+            **results[k]})
+    log(f"seconds by phase: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}, "
+        f"total {time.perf_counter() - t_start:.1f} s")
+    for line in e2e:
+        log(json.dumps(line))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -13,12 +13,15 @@ reference's orchestrator ``StereoProcessor::imageCb``
     records a CUDA event, :meth:`FrameResult.fetch` waits on it, and
     ``config.max_in_flight`` bounds how many frames may be outstanding.
 
-There is no device switch: each kernel-backed op dispatches on the device of
-its tensors (the kernel on CUDA, the plain version on the CPU), so a pipeline
-built for ``device="cuda"`` runs the three Hopper kernels and one built for
-``device="cpu"`` runs their plain versions.  The multi-device (``mesh``)
-branches, the SGM matcher and the bilateral filter are not ported yet
-(ROADMAP.md) and raise ``NotImplementedError``.
+A pipeline runs on the card (``device="cuda"``, the default) unless the
+caller asks for ``device="cpu"``.  There is no device switch beyond that:
+each kernel-backed op dispatches on the device of its tensors (the Hopper
+kernel on CUDA, the plain version on the CPU), and nothing falls back from
+one to the other.  The matcher is the block matcher or, with
+``algorithm="sgm"``, semi-global matching: the fused kernels for 4 paths,
+the plain recurrences of ops/sgm.py for 2 and 8, as in the JAX pipeline.
+The multi-device (``mesh``) branches and the bilateral filter are not
+ported yet (ROADMAP.md) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ from ros_gpu_stereo_processor_tpu_torch.ops import color as color_ops
 from ros_gpu_stereo_processor_tpu_torch.ops import colormap as colormap_ops
 from ros_gpu_stereo_processor_tpu_torch.ops import remap_kernel
 from ros_gpu_stereo_processor_tpu_torch.ops import reproject as reproject_ops
+from ros_gpu_stereo_processor_tpu_torch.ops import sgm as sgm_ops
+from ros_gpu_stereo_processor_tpu_torch.ops import sgm_kernel
 from ros_gpu_stereo_processor_tpu_torch.ops import speckle as speckle_ops
 from ros_gpu_stereo_processor_tpu_torch.ops import stereobm_kernel
 from ros_gpu_stereo_processor_tpu_torch.utils import msgs as msgs_mod
@@ -75,9 +80,6 @@ def _pipeline_step(
 ) -> Dict[str, torch.Tensor]:
     """One frame step: the stage DAG of imageCb (SURVEY.md §3.1), running
     only the stages ``outputs`` needs."""
-    if bm.algorithm != "bm":
-        raise NotImplementedError(
-            "the SGM matcher is not ported yet (ROADMAP.md, Queue 1 item 9)")
     if bilateral.enabled:
         raise NotImplementedError(
             "the bilateral filter is not ported yet (ROADMAP.md, Queue 1 item 10)")
@@ -129,9 +131,20 @@ def _pipeline_step(
                 res[f"rect_color_{side}"] = rect_color[side]
 
     if outputs.needs_disparity:
-        disp, valid = stereobm_kernel.compute_disparity_fused(
-            rect_mono["left"], rect_mono["right"], bm
-        )
+        if bm.algorithm == "sgm" and bm.sgm_paths == 4:
+            disp, valid = sgm_kernel.compute_disparity_sgm_fused(
+                rect_mono["left"], rect_mono["right"], bm,
+                p1=bm.sgm_p1, p2=bm.sgm_p2,
+            )
+        elif bm.algorithm == "sgm":
+            disp, valid = sgm_ops.compute_disparity_sgm(
+                rect_mono["left"], rect_mono["right"], bm,
+                p1=bm.sgm_p1, p2=bm.sgm_p2, num_paths=bm.sgm_paths,
+            )
+        else:
+            disp, valid = stereobm_kernel.compute_disparity_fused(
+                rect_mono["left"], rect_mono["right"], bm
+            )
         if speckle.enabled:
             disp, valid = speckle_ops.filter_speckles(
                 disp,
@@ -188,7 +201,7 @@ class StereoPipeline:
         self,
         model: StereoCameraModel,
         config: PipelineConfig = PipelineConfig(),
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ):
         self._setup(
             model.rect_maps_stacked(), model.Q,
@@ -206,7 +219,7 @@ class StereoPipeline:
         fx: float,
         baseline: float,
         config: PipelineConfig = PipelineConfig(),
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> "StereoPipeline":
         """A pipeline from a model's arrays: ``rect_maps`` (2, H, W, 2) float32
         (``StereoCameraModel.rect_maps_stacked()``) and the 4×4 ``Q`` — of

@@ -1,6 +1,7 @@
 """Build and bind the port's hand-written CUDA kernels (``csrc/*.cu``).
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` of the package into one
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` of the package, one
+process per source, all started together, and links the objects into one
 shared library with a plain C interface (no PyTorch headers, so the build
 takes seconds), which ``ctypes`` loads.  The library goes into the package's
 ``build/`` directory (git-ignored), under a name keyed by a hash of the
@@ -69,30 +70,43 @@ def library_path() -> Path:
     return BUILD_DIR / f"libstereo_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs: List[subprocess.Popen], cmds: List[List[str]], verbose: bool) -> None:
+    """Wait for every process; raise with the output of the first failure."""
+    outs = [p.communicate() for p in procs]
+    for p, cmd, (so, se) in zip(procs, cmds, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{so}\n{se}")
+        if verbose and (so or se):
+            print(so + se)
+
+
 def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/*.cu`` unless the library for these sources exists.
-    Returns its path; raises ``RuntimeError`` with nvcc's output on failure."""
+    """Compile ``csrc/*.cu`` unless the library for these sources exists:
+    one nvcc per source, all started together, then one link.  Returns the
+    library's path; raises ``RuntimeError`` with nvcc's output on failure."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent build never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    # build under a private directory and name, then rename: a concurrent
+    # build never loads a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        if verbose:
+            compile_flags += ["-Xptxas", "-v"]
+        cmds, objs = [], []
+        for src in _sources():
+            obj = os.path.join(work, src.stem + ".o")
+            cmds.append([_nvcc(), *compile_flags, "-c", str(src), "-o", obj])
+            objs.append(obj)
+        _run([subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                               text=True) for c in cmds], cmds, verbose)
+        tmp = os.path.join(work, "lib.so")
+        link = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *objs]
+        _run([subprocess.Popen(link, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                               text=True)], [link], verbose)
+        os.replace(tmp, out)
     return out
 
 

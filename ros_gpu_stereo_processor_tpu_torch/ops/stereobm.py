@@ -19,8 +19,11 @@ image are small integers held in float32 (a block-15 SAD is at most
 module agrees with the JAX oracle and with the fused kernel
 (ops/stereobm_kernel.py) bit for bit.
 
-The left-right check (``lr_check``) is not ported yet (ROADMAP.md, Queue 1):
-:func:`compute_disparity` raises ``NotImplementedError`` for it.
+The left-right check (``lr_check``) takes the right image's disparity from
+the same left-indexed cost volume (:func:`right_disparity_from_cost`, a
+gather where the JAX function scans with a rolled frame) and keeps the
+pixels that :func:`left_right_check` confirms; both equal the JAX functions
+bit for bit.
 """
 
 from __future__ import annotations
@@ -248,13 +251,60 @@ def compute_disparity(
     Returns:
       (disparity float32 (H, W), valid bool (H, W)).
     """
-    if cfg.lr_check:
-        raise NotImplementedError(
-            "lr_check is not ported yet (ROADMAP.md, Queue 1 item 4)")
     lf = prefilter(left, cfg)
     rf = prefilter(right, cfg)
     cost = sad_cost_volume(lf, rf, cfg)
-    return wta_disparity(cost, lf, cfg)
+    disp, valid = wta_disparity(cost, lf, cfg)
+    if cfg.lr_check:
+        disp_r = right_disparity_from_cost(cost, cfg)
+        return apply_lr_check(disp, valid, disp_r, cfg)
+    return disp, valid
+
+
+def right_disparity_from_cost(cost: torch.Tensor, cfg: StereoBMConfig) -> torch.Tensor:
+    """Right-image WTA disparity from the *left-indexed* cost volume.
+
+    cost[d, y, x] measures L(x) vs R(x − (mind + d)), so the candidates for
+    right pixel xr are cost[d, y, xr + mind + d] with that column inside the
+    image.  Ties keep the smallest d and only costs below 1e9 count.
+    Returns float32 absolute right disparity (mind − 1 where no candidate).
+    """
+    nd, H, W = cost.shape
+    mind = cfg.min_disparity
+    pad_l, pad_r = max(0, -mind), max(0, mind + nd)
+    padded = F.pad(cost, (pad_l, pad_r), value=BIG)
+    d = torch.arange(nd, device=cost.device)[:, None]
+    xr = torch.arange(W, device=cost.device)[None, :]
+    idx = (xr + d + (mind + pad_l))[:, None, :].expand(nd, H, W)
+    best, bestd = torch.min(padded.gather(2, idx), dim=0)
+    fill = torch.full((), float(mind - 1), device=cost.device)
+    return torch.where(best < BIG, (bestd + mind).float(), fill)
+
+
+def left_right_check(
+    disp_l: torch.Tensor,
+    disp_r: torch.Tensor,
+    cfg: StereoBMConfig,
+    max_diff: int = 1,
+) -> torch.Tensor:
+    """Left-right consistency: pixel x passes iff round(disp_l[x]) lies in
+    the search range and |disp_l[x] − disp_r[x − round(disp_l[x])]| ≤
+    max_diff.  The column index wraps at the image edge, as the JAX
+    function's ``jnp.roll`` does."""
+    W = disp_l.shape[1]
+    mind = cfg.min_disparity
+    dl = torch.round(disp_l).to(torch.int64)
+    in_range = (dl >= mind) & (dl < mind + cfg.num_disparities)
+    col = torch.arange(W, device=disp_l.device)[None, :]
+    dr_at = disp_r.gather(1, (col - dl) % W)
+    return in_range & ((dr_at - disp_l).abs() <= max_diff)
+
+
+def apply_lr_check(disp, valid, disp_r, cfg: StereoBMConfig):
+    """Invalidate the pixels that fail :func:`left_right_check`."""
+    valid = valid & left_right_check(disp, disp_r, cfg, cfg.lr_max_diff)
+    fill = torch.full((), float(cfg.min_disparity - 1), device=disp.device)
+    return torch.where(valid, disp, fill), valid
 
 
 def valid_window(cfg: StereoBMConfig, height: int, width: int):

@@ -10,6 +10,11 @@ uniqueness gates in plain PyTorch, as on the TPU.
 kernel, a CPU tensor runs :func:`fused_raw_plain` (the cost volume of
 ops/stereobm.py and its argmin).  Both give the same floats (see
 ops/stereobm.py on exactness).
+
+With ``lr_check`` the right image's disparity is a second matcher run on
+the mirrored, swapped pair, flipped back — the JAX fused path's definition
+(not the oracle's shared cost volume), so the port equals the JAX Pallas
+path here on either device.
 """
 
 from __future__ import annotations
@@ -35,8 +40,12 @@ def compute_disparity_fused(
     :func:`ops.stereobm.compute_disparity`: (H, W) mono uint8/float images →
     (disparity float32, valid bool)."""
     if cfg.lr_check:
-        raise NotImplementedError(
-            "lr_check is not ported yet (ROADMAP.md, Queue 1 item 4)")
+        # the right disparity is a second matcher run on the mirrored,
+        # swapped pair (the definition of stereobm_pallas.py's lr_check)
+        base = cfg.replace(lr_check=False)
+        disp, valid = compute_disparity_fused(left, right, base)
+        disp_rm, _ = compute_disparity_fused(right.flip(1), left.flip(1), base)
+        return bm_ops.apply_lr_check(disp, valid, disp_rm.flip(1), cfg)
     lf = bm_ops.prefilter(left, cfg)
     rf = bm_ops.prefilter(right, cfg)
     disp_raw, best_cost, excl = fused_raw(lf, rf, cfg)

@@ -60,7 +60,8 @@ def test_port_imports_without_jax_or_yaml():
         "    del sys.modules[k]\n"
         "sys.meta_path.insert(0, Block())\n"
         "import ros_gpu_stereo_processor_tpu_torch as p\n"
-        "from ros_gpu_stereo_processor_tpu_torch.ops import remap_kernel, stereobm_kernel, speckle_kernel\n"
+        "from ros_gpu_stereo_processor_tpu_torch.ops import (\n"
+        "    remap_kernel, sgm, sgm_kernel, speckle_kernel, stereobm_kernel)\n"
         "print(p.StereoPipeline.__name__)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))

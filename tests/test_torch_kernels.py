@@ -9,8 +9,8 @@ machine without them:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 All comparisons are exact: the kernels repeat the plain versions' float32
-operations step by step (remap), sum small integers (block matcher) or move
-integer labels (speckle).
+operations step by step (remap, SGM), sum small integers (block matcher) or
+move integer labels (speckle).
 """
 
 import numpy as np
@@ -21,6 +21,8 @@ from ros_gpu_stereo_processor_tpu_torch.config import StereoBMConfig
 from ros_gpu_stereo_processor_tpu_torch.ops import _build
 from ros_gpu_stereo_processor_tpu_torch.ops import remap
 from ros_gpu_stereo_processor_tpu_torch.ops import remap_kernel
+from ros_gpu_stereo_processor_tpu_torch.ops import sgm
+from ros_gpu_stereo_processor_tpu_torch.ops import sgm_kernel
 from ros_gpu_stereo_processor_tpu_torch.ops import speckle
 from ros_gpu_stereo_processor_tpu_torch.ops import speckle_kernel
 from ros_gpu_stereo_processor_tpu_torch.ops import stereobm
@@ -123,3 +125,89 @@ def test_filter_speckles_counts_launches(dev):
     lab = speckle._labels_scan(disp.cpu(), valid.cpu(), 5.0, 16)
     keep = speckle._keep_large_components(lab, 50) & valid.cpu()
     _exact(k.cpu(), keep)
+
+
+def test_bm_lr_check_kernel(dev):
+    """The mirrored second launch: the card's result equals the CPU run's."""
+    left, right, _ = synthetic_stereo_pair(67, 301, max_disparity=40, seed=4)
+    cfg = StereoBMConfig(num_disparities=32, block_size=9, lr_check=True)
+    _build.reset_launch_counts()
+    d, v = stereobm_kernel.compute_disparity_fused(
+        torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev), cfg)
+    assert stereobm_kernel.KERNEL.launches == 2
+    dp, vp = stereobm_kernel.compute_disparity_fused(
+        torch.from_numpy(left), torch.from_numpy(right), cfg)
+    _exact(v.cpu(), vp)
+    _exact(d.cpu(), dp)
+
+
+def _exact_volume(got, want):
+    """Storage volumes: same dtype, same values (compared in float32, which
+    holds every stored value exactly)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    _exact(got.float(), want.float())
+
+
+# (num_disparities, P1, P2, integer images): uint16 cost with uint8 excess,
+# with int16 excess (2·P2 > 255), and float32 storage
+SGM_MODES = [
+    (16, 10.0, 120.0, True),
+    (64, 10.0, 120.0, True),
+    (128, 10.0, 120.0, True),
+    (64, 20.0, 600.0, True),
+    (64, 7.5, 93.25, False),
+]
+
+
+@pytest.mark.parametrize("nd,p1,p2,integer", SGM_MODES)
+@pytest.mark.parametrize("shape", [(40, 112), (67, 301), (480, 752)])
+def test_sgm_kernels(dev, shape, nd, p1, p2, integer):
+    left, right, _ = synthetic_stereo_pair(*shape, max_disparity=min(nd, 48) - 4, seed=4)
+    if not integer:
+        left, right = left.astype(np.float32) + 0.25, right.astype(np.float32) + 0.25
+    cfg = StereoBMConfig(num_disparities=nd, block_size=15 if shape[0] > 40 else 9,
+                         refine_disparity=True, uniqueness_ratio=10)
+    lf = stereobm.prefilter(torch.from_numpy(left).to(dev), cfg)
+    rf = stereobm.prefilter(torch.from_numpy(right).to(dev), cfg)
+    cost_dt, exc_dt = sgm_kernel.storage_dtypes(cfg, p1, p2, integer)
+    assert (cost_dt == torch.float32) == (not integer)
+
+    _build.reset_launch_counts()
+    cost, down = sgm_kernel.cost_and_down(lf, rf, cfg, p1, p2, cost_dt, exc_dt)
+    assert sgm_kernel.COST_DOWN.launches == 1
+    cost_p, down_p = sgm_kernel.cost_and_down_plain(lf, rf, cfg, p1, p2, cost_dt, exc_dt)
+    _exact_volume(cost, cost_p)
+    _exact_volume(down, down_p)
+
+    for vertical in (True, False):
+        for reverse in (False, True):
+            for exc_in in (None, down):
+                got = sgm_kernel.aggregate(cost, exc_in, p1, p2, vertical, reverse, exc_dt)
+                want = sgm_kernel.aggregate_plain(cost, exc_in, p1, p2, vertical,
+                                                  reverse, exc_dt)
+                _exact_volume(got, want)
+    assert sgm_kernel.AGGREGATE.launches == 8
+
+    exc_h = sgm_kernel.aggregate(cost, down, p1, p2, False, True, exc_dt)
+    for c in (cfg, cfg.replace(refine_disparity=False, uniqueness_ratio=0, min_disparity=3)):
+        for got, want in zip(sgm_kernel.wta(cost, down, exc_h, c),
+                             sgm_kernel.wta_plain(cost, down, exc_h, c)):
+            _exact(got, want)
+    assert sgm_kernel.WTA.launches == 2
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(lr_check=True), dict(min_disparity=2)])
+def test_sgm_fused_on_card_equals_oracle(dev, kw):
+    """Every frame's launches, and the fused path (kernels) against the plain
+    recurrences of ops/sgm.py, both on the card: exact on uint8 input."""
+    left, right, _ = synthetic_stereo_pair(67, 301, max_disparity=40, seed=4)
+    cfg = StereoBMConfig(num_disparities=48, block_size=9, texture_threshold=5, **kw)
+    lt, rt = torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev)
+    _build.reset_launch_counts()
+    d, v = sgm_kernel.compute_disparity_sgm_fused(lt, rt, cfg)
+    launches = (sgm_kernel.COST_DOWN.launches, sgm_kernel.AGGREGATE.launches,
+                sgm_kernel.WTA.launches)
+    assert launches == ((1, 3, 0) if cfg.lr_check else (1, 3, 1))
+    dp, vp = sgm.compute_disparity_sgm(lt, rt, cfg)
+    _exact(v, vp)
+    _exact(d, dp)

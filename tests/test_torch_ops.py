@@ -208,12 +208,37 @@ def test_fused_raw_plain_matches_cost_volume(bm_pair):
     np.testing.assert_array_equal(excl.numpy(), np.where(far, cost, 1e9).min(axis=0))
 
 
-def test_lr_check_not_ported_yet(bm_pair):
+@pytest.mark.parametrize("kw", [BM_CONFIGS[1], BM_CONFIGS[3]])
+def test_lr_check_not_ported_yet(bm_pair, kw):
+    """The left-right check, once the one piece not ported, now exact against
+    both JAX forms: the oracle's right disparity from the shared cost volume
+    (with its two halves ``right_disparity_from_cost`` and
+    ``left_right_check``), and the fused path's mirrored second matcher
+    launch in the Pallas interpreter."""
     left, right = bm_pair
-    cfg = tconfig.StereoBMConfig(num_disparities=16, lr_check=True)
-    for fn in (tbm.compute_disparity, stereobm_kernel.compute_disparity_fused):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(_t(left), _t(right), cfg)
+    jcfg = jconfig.StereoBMConfig(lr_check=True, **kw)
+    cfg = tconfig.from_jax_config(jcfg)
+    jd, jv = jbm.compute_disparity(jnp.asarray(left), jnp.asarray(right), jcfg)
+    d, v = tbm.compute_disparity(_t(left), _t(right), cfg)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
+    assert 0.1 < np.asarray(jv).mean()
+
+    jlf, jrf = (jbm.prefilter(jnp.asarray(a), jcfg) for a in (left, right))
+    jcost = jbm.sad_cost_volume(jlf, jrf, jcfg)
+    jdr = jbm.right_disparity_from_cost(jcost, jcfg)
+    dr = tbm.right_disparity_from_cost(_t(jcost), cfg)
+    np.testing.assert_array_equal(dr.numpy(), np.asarray(jdr))
+    jdl, _ = jbm.wta_disparity(jcost, jlf, jcfg)
+    np.testing.assert_array_equal(
+        tbm.left_right_check(_t(jdl), dr, cfg, cfg.lr_max_diff).numpy(),
+        np.asarray(jbm.left_right_check(jdl, jdr, jcfg, jcfg.lr_max_diff)))
+
+    jd, jv = jbm_pallas.compute_disparity_fused(
+        jnp.asarray(left), jnp.asarray(right), jcfg, tile_h=16)
+    d, v = stereobm_kernel.compute_disparity_fused(_t(left), _t(right), cfg)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
 
 
 def test_valid_window_matches():

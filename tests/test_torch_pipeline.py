@@ -5,6 +5,8 @@ calibration and synthetic frames.  Both pipelines compute from identical
 state: the port is built with ``from_arrays`` from the JAX model's maps and
 Q, and ``from_jax_config`` carries the config across.
 
+Every pipeline here asks for ``device="cpu"`` (the default is the card).
+
 Tolerances: every output exact except ``pointcloud_xyz`` (rtol 1e-6, NaN
 positions exact — XLA may fuse the Q products into multiply-adds), and
 ``pointcloud_rgb`` compared bitwise (denormal bit patterns)."""
@@ -44,7 +46,7 @@ def jmodel():
 def _port(jm, cfg=JCFG):
     return T.StereoPipeline.from_arrays(
         jm.rect_maps_stacked(), jm.Q, W, H, jm.fx, jm.baseline,
-        T.from_jax_config(cfg))
+        T.from_jax_config(cfg), device="cpu")
 
 
 def _frame(seed=3):
@@ -94,7 +96,8 @@ def test_model_constructor_equals_from_arrays(jmodel):
         tcal.CameraCalib(W, H, _K, _D, np.eye(3), _PR, "right"))
     left, right = _frame(seed=6)
     out = T.Outputs.of("disparity", "rect_mono_right")
-    a = T.StereoPipeline(tm, T.from_jax_config(JCFG)).process(left, right, out).fetch()
+    a = T.StereoPipeline(tm, T.from_jax_config(JCFG), device="cpu").process(
+        left, right, out).fetch()
     b = _port(jmodel).process(left, right, out).fetch()
     _assert_outputs_equal(a, b)
 
@@ -168,12 +171,49 @@ def test_batch_timed_and_in_flight(jmodel):
     assert "process[2 outs]" in tp.timing_line()
 
 
+@pytest.mark.parametrize("kw", [
+    dict(sgm_paths=4),                   # the fused path: K4–K6 plain versions
+    dict(sgm_paths=4, lr_check=True),
+    dict(sgm_paths=8),                   # the plain recurrences of ops/sgm.py
+], ids=["4paths", "4paths_lr_check", "8paths"])
+def test_sgm_pipeline_matches_jax(jmodel, kw):
+    cfg = JCFG.replace(stereobm=J.StereoBMConfig(
+        num_disparities=32, block_size=9, algorithm="sgm", **kw))
+    left, right = _frame(seed=4)
+    jo = J.Outputs.all()
+    want = J.StereoPipeline(jmodel, cfg, use_pallas=False).process(left, right, jo).fetch()
+    got = _port(jmodel, cfg).process(left, right, T.from_jax_config(jo)).fetch()
+    _assert_outputs_equal(got, want)
+    assert 0.3 < got["disparity_valid"].mean()
+
+
+def test_bm_lr_check_pipeline_matches_jax_pallas(jmodel):
+    """The BM pipeline's lr_check is the mirrored second matcher launch, the
+    JAX Pallas path's definition (not the oracle's shared cost volume)."""
+    cfg = JCFG.replace(stereobm=JCFG.stereobm.replace(lr_check=True))
+    left, right = _frame(seed=12)
+    jo = J.Outputs.of("disparity", "disparity_vis")
+    want = J.StereoPipeline(jmodel, cfg, use_pallas=True).process(left, right, jo).fetch()
+    got = _port(jmodel, cfg).process(left, right, T.from_jax_config(jo)).fetch()
+    _assert_outputs_equal(got, want)
+
+
+def test_default_device_is_the_card(jmodel):
+    """Without ``device``, a pipeline goes to CUDA; where there is none, the
+    first tensor move raises (nothing falls back to the CPU)."""
+    arrays = (jmodel.rect_maps_stacked(), jmodel.Q, W, H, jmodel.fx, jmodel.baseline)
+    if torch.cuda.is_available():
+        assert T.StereoPipeline.from_arrays(*arrays).device.type == "cuda"
+        return
+    with pytest.raises((RuntimeError, AssertionError)):
+        T.StereoPipeline.from_arrays(*arrays)
+
+
 def test_unported_paths_raise(jmodel):
     left, right = _frame()
     out = T.Outputs.of("disparity")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port(jmodel).process(left, right, out, encoding="bayer_rggb8")
-    for cfg in (JCFG.replace(stereobm=J.StereoBMConfig(algorithm="sgm")),
-                JCFG.replace(bilateral=JBilateral(enabled=True))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port(jmodel, cfg).process(left, right, out)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _port(jmodel, JCFG.replace(bilateral=JBilateral(enabled=True))).process(
+            left, right, out)
