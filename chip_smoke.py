@@ -18,7 +18,10 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      the SGM kernels K4 cost + down path, K5 path aggregation (the frame's
      three calls) and K6 winner-take-all at 64 and 128 disparities with
      quantised storage and at 64 with float32 storage (P1 7.5, P2 93.25),
-     all exact;
+     all exact; K7 max-propagation on one band of the 4-band split
+     (120×752, its field and masks built by the row-sharded speckle filter
+     from a BM frame's disparity) at 480 rounds and at a count that stops
+     before convergence, and the band label rounds beside it, both exact;
   4. runs ``StereoPipeline`` on the card at 752×480, ``Outputs.all()``, over
      synthetic frames, for each main path:
        * block matching (default config, 64 disparities): 41 frames, each
@@ -26,8 +29,16 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
        * SGM (4 paths, 128 disparities, block 15, texture 10): 21 frames,
          each launching K1 twice, K3, K4 and K6 once and K5 three times, and
          not K2; 2 compared with the CPU run;
+       * the row-band mesh, ``make_mesh(4, devices=["cuda:0"] * 4)``, default
+         BM config: 11 frames, each launching K1 and K2 once per band per
+         call (8 and 4), K7 once per band (4), the band label rounds at
+         least once and K3 never; 2 compared with the CPU run of the same
+         4-band mesh;
      and, with ``lr_check=True``, one BM frame (K2 twice) and one SGM frame,
-     each compared with the CPU run.  The comparison: disparity, validity,
+     each compared with the CPU run; on the mesh, one frame with speckle
+     off against the single-device card pipeline, and one SGM frame (K4,
+     K5 ×3, K6 per band) and one ``lr_check`` frame (K2 twice per band)
+     against the CPU mesh run.  The comparison: disparity, validity,
      ``disparity_vis`` and the images exact, ``pointcloud_xyz`` with equal
      NaN positions and rtol 1e-5, ``pointcloud_rgb`` bitwise;
   5. prints the seconds of each phase, one JSON line per path with its
@@ -59,6 +70,9 @@ FRAMES = 41         # BM path: frame 0 is the warm-up; 40 timed frames give a p7
 COMPARED = 6        # BM frames also run on the CPU and compared
 SGM_FRAMES = 21     # SGM path: 1 warm-up + 20 timed
 SGM_COMPARED = 2
+MESH_FRAMES = 11    # mesh path: 1 warm-up + 10 timed
+MESH_COMPARED = 2
+BANDS = 4
 KERNEL_REPS = 20
 PLAIN_REPS = 3
 H, W = 480, 752
@@ -76,6 +90,10 @@ SOURCES = {   # key: (C entry point, CUDA source, TPU kernel it replaces)
     "K4": ("sgm_cost_down", "csrc/sgm.cu", "ops/sgm_pallas.py:191"),
     "K5": ("sgm_aggregate", "csrc/sgm.cu", "ops/sgm_pallas.py:349"),
     "K6": ("sgm_wta", "csrc/sgm.cu", "ops/sgm_pallas.py:432"),
+    "K7": ("speckle_maxprop", "csrc/speckle.cu", "ops/speckle_pallas.py:164"),
+    # the band-local label rounds of the mesh speckle filter: no TPU kernel,
+    # they replace the JAX band's jnp scans
+    "BL": ("speckle_band_labels", "csrc/speckle.cu", "parallel/frontend.py:585"),
 }
 
 
@@ -175,8 +193,8 @@ def compare_outputs(got, want, label):
 def drive(torch, _build, pipe, frames, outputs, per_frame, keep):
     """The main path: every count set to 0 just before, read just after.
     Each frame must launch each kernel of ``per_frame`` exactly that many
-    times.  Returns (per-frame ms, fetched outputs of the first ``keep``
-    frames, launches over the run)."""
+    times (at least once where the count is None).  Returns (per-frame ms,
+    fetched outputs of the first ``keep`` frames, launches over the run)."""
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     per_frame_ms, kept = [], []
@@ -184,9 +202,10 @@ def drive(torch, _build, pipe, frames, outputs, per_frame, keep):
         before = {k: kern.launches for k, (kern, _) in per_frame.items()}
         res, ms = pipe.timed_process(left, right, outputs)
         for k, (kern, n) in per_frame.items():
-            if kern.launches - before[k] != n:
-                raise AssertionError(f"frame {i}: {k} launched "
-                                     f"{kern.launches - before[k]} times, not {n}")
+            done = kern.launches - before[k]
+            if (done < 1) if n is None else (done != n):
+                raise AssertionError(f"frame {i}: {k} launched {done} times, "
+                                     f"not {'at least 1' if n is None else n}")
         per_frame_ms.append(ms)
         if i < keep:
             kept.append(res.fetch())
@@ -310,6 +329,63 @@ def check_sgm_kernels(torch, sgm_kernel, stereobm, rect, cfg, p1, p2):
     return out
 
 
+def check_k7(torch, speckle, speckle_kernel, frontend, mesh, disp, valid, sp_cfg):
+    """K7 and the band label rounds on band 1 of the mesh's split of one BM
+    frame, against their plain versions on the card, exact; then their
+    times and bounds.  K7 runs at 4·H_b rounds and at one round short of
+    the rounds this field needs."""
+    bands = frontend.speckle_size_fields(
+        mesh.split(disp), mesh.split(valid), mesh,
+        max_speckle_size=sp_cfg.max_speckle_size, max_diff=sp_cfg.max_diff)
+    field, cx, cy = bands[1]
+    hb, w = field.shape
+    iters = 4 * hb
+    full = speckle_kernel.max_propagate(field, cx, cy, iters)
+    require_equal(f"K7 at {iters} rounds", full, speckle._max_propagate(field, cx, cy, iters))
+    # the rounds this field needs: the least count that gives the converged
+    # field (the result is monotone in the count, so bisect)
+    lo, hi = 1, iters
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if torch.equal(speckle_kernel.max_propagate(field, cx, cy, mid), full):
+            hi = mid
+        else:
+            lo = mid + 1
+    rounds = lo
+    short = max(1, rounds - 1)
+    got = speckle_kernel.max_propagate(field, cx, cy, short)
+    require_equal(f"K7 at {short} rounds", got, speckle._max_propagate(field, cx, cy, short))
+    stopped_early = not torch.equal(got, full)
+    log(f"K7 band 1 of {mesh.size} ({hb}x{w}): converged in {rounds} rounds; at {short} "
+        f"rounds {'stops before convergence' if stopped_early else 'is converged'}; "
+        f"{int((full != field).sum())} pixels raised")
+    err = max(max_abs(full, speckle._max_propagate(field, cx, cy, iters)),
+              max_abs(got, speckle._max_propagate(field, cx, cy, short)))
+
+    # the band label rounds: 2 rounds from the band's raster labels
+    pix = (hb * w + torch.arange(hb * w, dtype=torch.int32, device=field.device)).reshape(hb, w)
+    sentinel = torch.full((), disp.numel(), dtype=torch.int32, device=field.device)
+    lab = torch.where(mesh.split(valid)[1], pix, sentinel)
+    bl = speckle_kernel.band_labels(lab, cx, cy, 2)
+    bl_plain = speckle._label_rounds(lab, cx, cy, 2)
+    require_equal("band label rounds", bl, bl_plain)
+
+    nbytes = hb * w * (4 + 1 + 1 + 4)
+    out = {}
+    for key, fn, plain, r in (
+            ("K7", lambda: speckle_kernel.max_propagate(field, cx, cy, iters),
+             lambda: speckle._max_propagate(field, cx, cy, iters), rounds),
+            ("BL", lambda: speckle_kernel.band_labels(lab, cx, cy, 2),
+             lambda: speckle._label_rounds(lab, cx, cy, 2), 2)):
+        b_ms, by = bound(nbytes, 2 * 2 * r * hb * w)
+        out[key] = {"max_abs_err": err if key == "K7" else max_abs(bl, bl_plain),
+                    "ms": cuda_ms(torch, fn, KERNEL_REPS),
+                    "plain_ms": cuda_ms(torch, plain, PLAIN_REPS),
+                    "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+    out["K7"]["rounds_to_converge"] = rounds
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -328,6 +404,8 @@ def main() -> int:
         _build, remap, remap_kernel, sgm_kernel, speckle, speckle_kernel, stereobm,
         stereobm_kernel,
     )
+    from ros_gpu_stereo_processor_tpu_torch.parallel import frontend
+    from ros_gpu_stereo_processor_tpu_torch.parallel.mesh import make_mesh
     from ros_gpu_stereo_processor_tpu_torch.utils import calib, timing
 
     # the port uses no convolution and no matrix product; both TF32
@@ -450,6 +528,13 @@ def main() -> int:
                 f"{storage}: " + json.dumps(res))
         results.update(res)       # the last case is the SGM main path's shape
 
+    # -- K7 + band label rounds ------------------------------------------
+    with phase("K7", seconds):
+        mesh = make_mesh(BANDS, devices=[dev] * BANDS)
+        res = check_k7(torch, speckle, speckle_kernel, frontend, mesh, disp, valid, sp)
+        log("K7 max-propagation and band label rounds: exact; " + json.dumps(res))
+        results.update(res)
+
     arrays = (model.rect_maps_stacked(), model.Q, W, H, model.fx, model.baseline)
     pipes = []
 
@@ -522,13 +607,54 @@ def main() -> int:
         compare_outputs(got[0], lr_cpu.process(*sframes[0], outputs).fetch(),
                         "SGM lr_check frame 0")
 
+    # -- the row-band mesh end to end ----------------------------------------
+    with phase("mesh e2e", seconds):
+        mpipe = new_pipe(mesh=make_mesh(BANDS, devices=[dev] * BANDS))
+        mcpu = new_pipe(mesh=make_mesh(BANDS, devices=["cpu"] * BANDS))
+        mframes = frames[:MESH_FRAMES]
+        per_frame = {"K1": (k1, 2 * BANDS), "K2": (stereobm_kernel.KERNEL, BANDS),
+                     "K3": (speckle_kernel.KERNEL, 0), "K7": (speckle_kernel.MAXPROP, BANDS),
+                     "BL": (speckle_kernel.BAND_LABELS, None)}
+        mesh_ms, gpu_out, launches["mesh"] = drive(torch, _build, mpipe, mframes, outputs,
+                                                   per_frame, MESH_COMPARED)
+        log(f"mesh launches over {MESH_FRAMES} frames: {launches['mesh']}")
+        mesh_pipelined = pipelined(torch, mpipe, mframes, outputs)
+        for i in range(MESH_COMPARED):
+            compare_outputs(gpu_out[i], mcpu.process(*mframes[i], outputs).fetch(),
+                            f"mesh frame {i}")
+        e2e.append(summary("mesh", mesh_ms, mesh_pipelined))
+        if args.profile:
+            profile_frames(torch, timing, mpipe, mframes[1:6], outputs,
+                           os.path.join(args.profile, "mesh"), "mesh")
+
+    with phase("mesh checks", seconds):
+        cfg = port.PipelineConfig(speckle=port.SpeckleConfig(max_speckle_size=0))
+        off = new_pipe(config=cfg, mesh=make_mesh(BANDS, devices=[dev] * BANDS))
+        compare_outputs(off.process(*frames[0], outputs).fetch(),
+                        new_pipe(config=cfg, device=dev).process(*frames[0], outputs).fetch(),
+                        "mesh frame 0, speckle off, against one device")
+        for label, cfg, frame, per_frame in (
+                ("mesh SGM", port.PipelineConfig(stereobm=sgm_bm), sframes[0],
+                 {"K2": (stereobm_kernel.KERNEL, 0), "K4": (sgm_kernel.COST_DOWN, BANDS),
+                  "K5": (sgm_kernel.AGGREGATE, 3 * BANDS), "K6": (sgm_kernel.WTA, BANDS),
+                  "K7": (speckle_kernel.MAXPROP, BANDS)}),
+                ("mesh lr_check", port.PipelineConfig(stereobm=port.StereoBMConfig(
+                    lr_check=True)), frames[0],
+                 {"K2": (stereobm_kernel.KERNEL, 2 * BANDS),
+                  "K7": (speckle_kernel.MAXPROP, BANDS)})):
+            gpipe = new_pipe(config=cfg, mesh=make_mesh(BANDS, devices=[dev] * BANDS))
+            cpipe = new_pipe(config=cfg, mesh=make_mesh(BANDS, devices=["cpu"] * BANDS))
+            _, got, launches[label] = drive(torch, _build, gpipe, [frame], outputs,
+                                            per_frame, 1)
+            compare_outputs(got[0], cpipe.process(*frame, outputs).fetch(), f"{label} frame 0")
+
     for p in pipes:
         p.senders.shutdown()
 
     kernels = []
-    for k in ("K1", "K2", "K3", "K4", "K5", "K6"):
+    for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "BL"):
         sym, src, tpu = SOURCES[k]
-        path = "bm" if k in ("K1", "K2", "K3") else "sgm"
+        path = {"K1": "bm", "K2": "bm", "K3": "bm", "K7": "mesh", "BL": "mesh"}.get(k, "sgm")
         kernels.append({
             "name": sym, "route": "cuda",
             "source": f"ros_gpu_stereo_processor_tpu_torch/{src}",

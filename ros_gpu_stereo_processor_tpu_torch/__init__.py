@@ -4,10 +4,11 @@ The dense stereo frame pipeline of ``ros_gpu_stereo_processor_tpu`` (the JAX
 package, which stays the reference) on torch tensors: mono conversion,
 bilinear rectification, X-Sobel prefilter and SAD block matching or
 semi-global matching (SGM), the left-right check, the speckle filter,
-``disparity_vis`` and the organised point cloud.  Six kernels run as
-hand-written CUDA on a CUDA device (``csrc/``, built with nvcc at first
-use) and as their plain PyTorch versions on the CPU.  A pipeline runs on
-the card unless the caller asks for ``device="cpu"``.
+``disparity_vis`` and the organised point cloud, on one device or by row
+bands over a band mesh (``parallel/``).  Seven kernels run as hand-written
+CUDA on a CUDA device (``csrc/``, built with nvcc at first use) and as
+their plain PyTorch versions on the CPU.  A pipeline runs on the card
+unless the caller asks for ``device="cpu"``.
 
 This package imports torch and numpy only; never jax and never the JAX
 package.

@@ -20,8 +20,15 @@ kernel on CUDA, the plain version on the CPU), and nothing falls back from
 one to the other.  The matcher is the block matcher or, with
 ``algorithm="sgm"``, semi-global matching: the fused kernels for 4 paths,
 the plain recurrences of ops/sgm.py for 2 and 8, as in the JAX pipeline.
-The multi-device (``mesh``) branches and the bilateral filter are not
-ported yet (ROADMAP.md) and raise ``NotImplementedError``.
+
+With ``mesh`` (a band mesh of parallel/mesh.py) the frame runs the row-band
+frontend of parallel/frontend.py: rectification, matching and the speckle
+filter by band, as the JAX pipeline's ``mesh`` branch does (SGM there is
+always the 4-path row-band SGM, whatever ``sgm_paths`` says).  The images,
+the disparity and every output are assembled whole on the mesh's first
+device, which changes no value.  Slab mode (``shard_mode="disp"``) and the
+bilateral filter are not ported yet (ROADMAP.md) and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 from collections import deque
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +57,8 @@ from ros_gpu_stereo_processor_tpu_torch.ops import sgm as sgm_ops
 from ros_gpu_stereo_processor_tpu_torch.ops import sgm_kernel
 from ros_gpu_stereo_processor_tpu_torch.ops import speckle as speckle_ops
 from ros_gpu_stereo_processor_tpu_torch.ops import stereobm_kernel
+from ros_gpu_stereo_processor_tpu_torch.parallel import frontend as par
+from ros_gpu_stereo_processor_tpu_torch.parallel.mesh import BandMesh
 from ros_gpu_stereo_processor_tpu_torch.utils import msgs as msgs_mod
 from ros_gpu_stereo_processor_tpu_torch.utils.calib import StereoCameraModel
 from ros_gpu_stereo_processor_tpu_torch.utils.msgs import (
@@ -77,21 +86,35 @@ def _pipeline_step(
     bm: StereoBMConfig,
     speckle: SpeckleConfig,
     bilateral: BilateralConfig = BilateralConfig(),
+    mesh: Optional[BandMesh] = None,
+    band_maps: Optional[List[torch.Tensor]] = None,
+    shard_axis: str = "rows",
+    shard_mode: str = "rows",
 ) -> Dict[str, torch.Tensor]:
     """One frame step: the stage DAG of imageCb (SURVEY.md §3.1), running
-    only the stages ``outputs`` needs."""
+    only the stages ``outputs`` needs.  With ``mesh``, ``band_maps`` holds
+    each band's rows of ``rect_maps`` on its device, and the rectified
+    images and the disparity are band lists until assembled."""
     if bilateral.enabled:
         raise NotImplementedError(
-            "the bilateral filter is not ported yet (ROADMAP.md, Queue 1 item 10)")
+            "the bilateral filter is not ported yet (ROADMAP.md, Queue 1 item 10"
+            + (", and bilateral_row_sharded, item 13)" if mesh is not None else ")"))
     res: Dict[str, torch.Tensor] = {}
 
-    def rectify(images: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        # every requested side in one remap launch
+    def whole(x):
+        return x if mesh is None else mesh.gather(x)
+
+    def rectify(images: Dict[str, torch.Tensor]) -> Dict:
+        # every requested side in one remap launch (per band on a mesh)
         sides = list(images)
         idx = [SIDES.index(s) for s in sides]
-        maps = rect_maps if idx == [0, 1] else rect_maps[idx]
-        out = remap_kernel.rectify(torch.stack([images[s] for s in sides]), maps)
-        return dict(zip(sides, out))
+        stack = torch.stack([images[s] for s in sides])
+        if mesh is None:
+            maps = rect_maps if idx == [0, 1] else rect_maps[idx]
+            return dict(zip(sides, remap_kernel.rectify(stack, maps)))
+        maps = [m if idx == [0, 1] else m[idx] for m in band_maps]
+        bands = par.remap_row_sharded(stack, maps, mesh, shard_axis)
+        return {s: [b[k] for b in bands] for k, s in enumerate(sides)}
 
     mono = {}
     if outputs.needs_mono:
@@ -114,7 +137,7 @@ def _pipeline_step(
         rect_mono = rectify(mono)
         for side in SIDES:
             if f"rect_mono_{side}" in outputs:
-                res[f"rect_mono_{side}"] = rect_mono[side]
+                res[f"rect_mono_{side}"] = whole(rect_mono[side])
 
     rect_color = {}
     if outputs.needs_rect_color:
@@ -128,10 +151,12 @@ def _pipeline_step(
         rect_color = rectify({s: colr[s] for s in need})
         for side in need:
             if f"rect_color_{side}" in outputs:
-                res[f"rect_color_{side}"] = rect_color[side]
+                res[f"rect_color_{side}"] = whole(rect_color[side])
 
     if outputs.needs_disparity:
-        if bm.algorithm == "sgm" and bm.sgm_paths == 4:
+        if mesh is not None:
+            disp, valid = _mesh_disparity(rect_mono, bm, speckle, mesh, shard_axis, shard_mode)
+        elif bm.algorithm == "sgm" and bm.sgm_paths == 4:
             disp, valid = sgm_kernel.compute_disparity_sgm_fused(
                 rect_mono["left"], rect_mono["right"], bm,
                 p1=bm.sgm_p1, p2=bm.sgm_p2,
@@ -145,7 +170,7 @@ def _pipeline_step(
             disp, valid = stereobm_kernel.compute_disparity_fused(
                 rect_mono["left"], rect_mono["right"], bm
             )
-        if speckle.enabled:
+        if speckle.enabled and mesh is None:
             disp, valid = speckle_ops.filter_speckles(
                 disp,
                 valid,
@@ -162,8 +187,9 @@ def _pipeline_step(
                 disp, bm.num_disparities, valid
             )
         if "pointcloud" in outputs:
+            rgb = rect_color.get("left")
             pc = reproject_ops.point_cloud(
-                disp, Q, rgb=rect_color.get("left"), valid=valid
+                disp, Q, rgb=None if rgb is None else whole(rgb), valid=valid
             )
             res["pointcloud_xyz"] = pc["xyz"]
             if "rgb" in pc:
@@ -172,14 +198,42 @@ def _pipeline_step(
     return res
 
 
+def _mesh_disparity(rect_mono, bm: StereoBMConfig, speckle: SpeckleConfig,
+                    mesh: BandMesh, shard_axis: str, shard_mode: str):
+    """The matcher and the speckle filter by band; (disparity, valid)
+    assembled whole on the mesh's first device."""
+    left, right = rect_mono["left"], rect_mono["right"]
+    if bm.algorithm == "sgm":
+        disp, valid = par.disparity_sgm_row_sharded(
+            left, right, bm, mesh, shard_axis, p1=bm.sgm_p1, p2=bm.sgm_p2)
+    elif shard_mode == "disp":
+        raise NotImplementedError(
+            "disparity-slab sharding (shard_mode='disp') is not ported yet "
+            "(ROADMAP.md, Queue 1 item 13)")
+    else:
+        disp, valid = par.disparity_row_sharded(left, right, bm, mesh, shard_axis)
+    if speckle.enabled:
+        disp, valid = par.filter_speckles_row_sharded(
+            disp, valid, mesh, shard_axis,
+            max_speckle_size=speckle.max_speckle_size,
+            max_diff=speckle.max_diff,
+            iters=speckle.propagation_iters,
+            merge_rounds=speckle.boundary_merge_rounds,
+            fill_value=float(bm.min_disparity - 1),
+        )
+    return mesh.gather(disp), mesh.gather(valid)
+
+
 @dataclasses.dataclass
 class FrameResult:
     """Device-tensor outputs of one frame step, with the CUDA event recorded
-    after its work (None on the CPU, where the step ran synchronously)."""
+    after its work (None on the CPU, where the step ran synchronously) and,
+    on a mesh, one more per further CUDA device the frame used."""
 
     outputs: Dict[str, torch.Tensor]
     header: Header
     event: Optional[torch.cuda.Event] = None
+    band_events: Tuple[torch.cuda.Event, ...] = ()
 
     def fetch(self) -> Dict[str, np.ndarray]:
         """Wait for the frame and return its outputs as numpy arrays."""
@@ -187,26 +241,35 @@ class FrameResult:
         return {k: msgs_mod.to_host(v) for k, v in self.outputs.items()}
 
     def block_until_ready(self) -> "FrameResult":
-        if self.event is not None:
-            self.event.synchronize()
+        for e in ((self.event,) if self.event is not None else ()) + self.band_events:
+            e.synchronize()
         return self
 
 
 class StereoPipeline:
     """The engine object: construct once with a stereo model (or with its
     arrays, :meth:`from_arrays`) and a device, then ``process`` frames with
-    any demand flag-set."""
+    any demand flag-set.
+
+    ``device`` defaults to the card.  ``mesh``: a band mesh
+    (``parallel.mesh.make_mesh``) — run every frame by row bands over its
+    ``shard_axis`` (default: its first axis); the pipeline's device is then
+    the mesh's first device.  ``shard_mode``: ``"rows"``, or ``"disp"``
+    (disparity slabs, not ported yet); SGM configs always row-shard."""
 
     def __init__(
         self,
         model: StereoCameraModel,
         config: PipelineConfig = PipelineConfig(),
-        device: torch.device | str = "cuda",
+        device: torch.device | str | None = None,
+        mesh: Optional[BandMesh] = None,
+        shard_axis: Optional[str] = None,
+        shard_mode: str = "rows",
     ):
         self._setup(
             model.rect_maps_stacked(), model.Q,
             model.left.calib.width, model.left.calib.height,
-            model.fx, model.baseline, config, device,
+            model.fx, model.baseline, config, device, mesh, shard_axis, shard_mode,
         )
 
     @classmethod
@@ -219,27 +282,50 @@ class StereoPipeline:
         fx: float,
         baseline: float,
         config: PipelineConfig = PipelineConfig(),
-        device: torch.device | str = "cuda",
+        device: torch.device | str | None = None,
+        mesh: Optional[BandMesh] = None,
+        shard_axis: Optional[str] = None,
+        shard_mode: str = "rows",
     ) -> "StereoPipeline":
         """A pipeline from a model's arrays: ``rect_maps`` (2, H, W, 2) float32
         (``StereoCameraModel.rect_maps_stacked()``) and the 4×4 ``Q`` — of
         this package's model or of the JAX package's, which are identical."""
         self = cls.__new__(cls)
-        self._setup(rect_maps, Q, width, height, fx, baseline, config, device)
+        self._setup(rect_maps, Q, width, height, fx, baseline, config, device,
+                    mesh, shard_axis, shard_mode)
         return self
 
-    def _setup(self, rect_maps, Q, width, height, fx, baseline, config, device):
+    def _setup(self, rect_maps, Q, width, height, fx, baseline, config, device,
+               mesh=None, shard_axis=None, shard_mode="rows"):
         rect_maps = np.asarray(rect_maps, np.float32)
         if rect_maps.shape != (2, height, width, 2):
             raise ValueError(
                 f"rect_maps {rect_maps.shape} != (2, {height}, {width}, 2)")
-        self.device = torch.device(device)
+        if shard_mode not in ("rows", "disp"):
+            raise ValueError(f"shard_mode={shard_mode!r} must be 'rows' or 'disp'")
+        self.mesh, self.shard_mode = mesh, shard_mode
+        self.shard_axis = shard_axis or (mesh.axis_names[0] if mesh is not None else "rows")
+        if mesh is not None:
+            n = mesh.shape[self.shard_axis]
+            if height % n != 0:
+                raise ValueError(f"image height {height} not divisible by mesh axis "
+                                 f"{self.shard_axis}={n}")
+            if device is not None and torch.device(device) != mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first device "
+                                 f"{mesh.devices[0]}")
+            device = mesh.devices[0]
+        self.device = torch.device("cuda" if device is None else device)
         self.width, self.height = int(width), int(height)
         self.fx, self.baseline = float(fx), float(baseline)
         self.config = config
         self._rect_maps = torch.from_numpy(rect_maps).to(self.device)
         self._Q = torch.from_numpy(
             np.asarray(Q).astype(np.float32)).to(self.device)
+        self._band_maps = None
+        if mesh is not None:
+            hb = height // mesh.shape[self.shard_axis]
+            self._band_maps = [self._rect_maps[:, i * hb:(i + 1) * hb].to(d).contiguous()
+                               for i, d in enumerate(mesh.devices)]
         self.senders = SenderPool(
             max_workers=max(1, config.publisher_queue_size + 1)
         )
@@ -296,6 +382,8 @@ class StereoPipeline:
             self._rect_maps, self._Q,
             encoding=encoding, outputs=outputs, bm=cfg.stereobm,
             speckle=cfg.speckle, bilateral=cfg.bilateral,
+            mesh=self.mesh, band_maps=self._band_maps,
+            shard_axis=self.shard_axis, shard_mode=self.shard_mode,
         )
 
     def process(
@@ -310,11 +398,16 @@ class StereoPipeline:
         ``config.max_in_flight`` frames are already outstanding, in which
         case the oldest is waited for first (bounded pipelining)."""
         out = self._step(left, right, outputs, encoding)
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
-        res = FrameResult(outputs=out, header=header or Header(), event=event)
+        devices = [self.device] if self.mesh is None else self.mesh.unique_devices()
+        events = []
+        for d in devices:
+            if d.type == "cuda":
+                with torch.cuda.device(d):
+                    events.append(torch.cuda.Event())
+                    events[-1].record()
+        res = FrameResult(outputs=out, header=header or Header(),
+                          event=events[0] if events else None,
+                          band_events=tuple(events[1:]))
         depth = max(1, self.config.max_in_flight)
         self._in_flight.append(res)
         while len(self._in_flight) > depth:

@@ -92,6 +92,36 @@ def _labels_scan(
     return torch.where(valid, lab, sentinel)
 
 
+def _label_rounds(lab: torch.Tensor, conn_x: torch.Tensor, conn_y: torch.Tensor,
+                  rounds: int) -> torch.Tensor:
+    """``rounds`` row/column segmented min-scans of a given label field —
+    the band-local label rounds of the row-sharded speckle filter
+    (parallel/frontend.py), plain version of ``speckle_kernel.band_labels``."""
+    for _ in range(rounds):
+        lab = _segmented_min_scan(lab, conn_x, axis=1)
+        lab = _segmented_min_scan(lab, conn_y, axis=0)
+    return lab
+
+
+def _max_propagate(field: torch.Tensor, conn_x: torch.Tensor, conn_y: torch.Tensor,
+                   iters: int) -> torch.Tensor:
+    """Max-propagate an int32 ``field`` across the runs of ``conn_x``
+    (rows) and ``conn_y`` (columns): alternating row/column segmented max
+    sweeps (min-scans of the negated field, as the JAX twin) until a round
+    changes nothing or ``iters`` rounds have run.  Monotone, so stopping at
+    an unchanged round is exact.  Plain version of
+    ``speckle_kernel.max_propagate`` (K7)."""
+    neg = -field
+    for _ in range(iters):
+        new = _segmented_min_scan(neg, conn_x, axis=1)
+        new = _segmented_min_scan(new, conn_y, axis=0)
+        changed = bool((new < neg).any())
+        neg = new
+        if not changed:
+            break
+    return -neg
+
+
 def _keep_large_components(lab: torch.Tensor, max_speckle_size: int) -> torch.Tensor:
     """keep[p] ⇔ (# pixels sharing p's label) > max_speckle_size — the exact
     ``bincount(lab)[lab] > T`` for any label image, converged or not.

@@ -1,12 +1,24 @@
-"""Speckle labels on the card: the wrapper of ``csrc/speckle.cu``.
+"""Speckle labels and size propagation on the card: the wrappers of
+``csrc/speckle.cu``.
 
-The port of ``ros_gpu_stereo_processor_tpu/ops/speckle_pallas.py`` (TPU
-kernel ``_propagation_kernel``, launched by ``labels_pallas``).  Component
-sizing stays in ops/speckle.py.
+The port of ``ros_gpu_stereo_processor_tpu/ops/speckle_pallas.py`` and its
+two TPU kernels:
 
-:func:`labels` is the op's one dispatch point: a CUDA tensor launches the
-kernel, a CPU tensor runs ``ops/speckle.py::_labels_scan``.  The kernel's
-labels are bit-identical to the plain version's at the same ``iters``.
+  * K3 :func:`labels` (``_propagation_kernel``, launched by
+    ``labels_pallas``): component labels from disparity and validity;
+  * K7 :func:`max_propagate` (``_maxprop_kernel``, launched by
+    ``max_propagate_pallas``): max-propagation of an int32 field over given
+    link masks, the row-sharded speckle filter's size broadcast.
+
+:func:`band_labels` runs K7's rounds in min mode on a given label field: the
+band-local label rounds of the row-sharded filter (parallel/frontend.py).
+It has its own C entry and launch counter, so K7's launches are counted
+apart.  Component sizing stays in ops/speckle.py.
+
+Each function is its op's one dispatch point: a CUDA tensor launches the
+kernel, a CPU tensor runs the plain version of ops/speckle.py
+(``_labels_scan``, ``_max_propagate``, ``_label_rounds``).  Kernels and
+plain versions agree bit for bit at the same round count.
 """
 
 from __future__ import annotations
@@ -23,6 +35,9 @@ KERNEL = _build.Kernel(
     [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                              ctypes.c_int],
 )
+_PROPAGATE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+MAXPROP = _build.Kernel("speckle_maxprop", _PROPAGATE_ARGS)
+BAND_LABELS = _build.Kernel("speckle_band_labels", _PROPAGATE_ARGS)
 
 
 def labels(
@@ -59,3 +74,51 @@ def _launch(disp: torch.Tensor, valid: torch.Tensor, max_diff: float,
                _build.ptr(conn[0]), _build.ptr(conn[1]), _build.ptr(changed),
                H, W, float(max_diff), int(iters))
     return lab
+
+
+def max_propagate(field: torch.Tensor, conn_x: torch.Tensor, conn_y: torch.Tensor,
+                  iters: int) -> torch.Tensor:
+    """K7: (H, W) int32 ``field`` with bool ``conn_x``/``conn_y`` (pixel
+    linked to its left / upper neighbour) → (H, W) int32, every run of
+    linked pixels given its maximum by up to ``iters`` row/column rounds,
+    stopping once a round changes nothing."""
+    _check_propagate(field, conn_x, conn_y)
+    if not field.is_cuda:
+        return speckle_plain._max_propagate(field, conn_x, conn_y, iters)
+    return _launch_propagate(MAXPROP, field, conn_x, conn_y, iters)
+
+
+def band_labels(lab: torch.Tensor, conn_x: torch.Tensor, conn_y: torch.Tensor,
+                rounds: int) -> torch.Tensor:
+    """``rounds`` row/column min-propagation rounds of a given (H, W) int32
+    label field over bool link masks."""
+    _check_propagate(lab, conn_x, conn_y)
+    if not lab.is_cuda:
+        return speckle_plain._label_rounds(lab, conn_x, conn_y, rounds)
+    return _launch_propagate(BAND_LABELS, lab, conn_x, conn_y, rounds)
+
+
+def _check_propagate(field, conn_x, conn_y) -> None:
+    if field.dim() != 2 or conn_x.shape != field.shape or conn_y.shape != field.shape:
+        raise ValueError(f"propagation wants (H, W) field and masks; got "
+                         f"{tuple(field.shape)}, {tuple(conn_x.shape)}, "
+                         f"{tuple(conn_y.shape)}")
+    if field.dtype != torch.int32 or conn_x.dtype != torch.bool or conn_y.dtype != torch.bool:
+        raise TypeError("propagation takes an int32 field and bool masks")
+
+
+def _launch_propagate(kernel: _build.Kernel, field: torch.Tensor, conn_x: torch.Tensor,
+                      conn_y: torch.Tensor, iters: int) -> torch.Tensor:
+    if not (conn_x.is_cuda and conn_y.is_cuda
+            and conn_x.device == field.device == conn_y.device):
+        raise ValueError("field and masks must be on the same CUDA device")
+    H, W = field.shape
+    if H * W >= 2**31:
+        raise ValueError("the propagation kernel takes fields under 2^31 pixels")
+    field, conn_x, conn_y = field.contiguous(), conn_x.contiguous(), conn_y.contiguous()
+    out = torch.empty_like(field)
+    changed = torch.empty(max(int(iters), 1), dtype=torch.int32, device=field.device)
+    with torch.cuda.device(field.device):
+        kernel(_build.ptr(field), _build.ptr(out), _build.ptr(conn_x), _build.ptr(conn_y),
+               _build.ptr(changed), H, W, int(iters))
+    return out

@@ -185,12 +185,15 @@ def wta_disparity(
     cfg: StereoBMConfig = StereoBMConfig(),
     *,
     tex: torch.Tensor | None = None,
+    row_offset: int = 0,
+    total_rows: int | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Winner-take-all with texture/uniqueness checks and subpixel refine.
 
     Returns (disparity float32 — absolute, i.e. includes min_disparity —
     and validity mask bool).  Invalid pixels carry min_disparity−1.
     Ties keep the smallest disparity (``argmin`` returns the first minimum).
+    A row band passes ``row_offset``/``total_rows`` for the border gate.
     """
     nd, H, W = cost.shape
     mind = cfg.min_disparity
@@ -199,7 +202,7 @@ def wta_disparity(
     cbest, best = torch.min(cost, dim=0)
 
     valid = cbest < BIG
-    valid &= border_mask(H, W, r, cost.device)
+    valid &= border_mask(H, W, r, cost.device, row_offset, total_rows)
 
     # texture check: Σ_window |prefiltered − cap| must reach the threshold
     if cfg.texture_threshold > 0:

@@ -117,11 +117,16 @@ def fused_gates(
     excl: torch.Tensor,
     cfg: StereoBMConfig,
     tex: torch.Tensor | None,
+    row_offset: int = 0,
+    total_rows: int | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Validity gates on the raw maps (border, texture, uniqueness)."""
+    """Validity gates on the raw maps (border, texture, uniqueness).  A row
+    band gives its first row's image row and the image's height, so that
+    its border rows are judged against the whole image."""
     H, W = disp_raw.shape
     valid = best_cost < bm_ops.BIG
-    valid &= bm_ops.border_mask(H, W, cfg.block_radius, disp_raw.device)
+    valid &= bm_ops.border_mask(H, W, cfg.block_radius, disp_raw.device,
+                                row_offset, total_rows)
     if cfg.texture_threshold > 0:
         valid &= tex >= cfg.texture_threshold
     if cfg.uniqueness_ratio > 0:

@@ -62,6 +62,7 @@ def test_port_imports_without_jax_or_yaml():
         "import ros_gpu_stereo_processor_tpu_torch as p\n"
         "from ros_gpu_stereo_processor_tpu_torch.ops import (\n"
         "    remap_kernel, sgm, sgm_kernel, speckle_kernel, stereobm_kernel)\n"
+        "from ros_gpu_stereo_processor_tpu_torch.parallel import frontend, mesh\n"
         "print(p.StereoPipeline.__name__)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -211,3 +211,93 @@ def test_sgm_fused_on_card_equals_oracle(dev, kw):
     dp, vp = sgm.compute_disparity_sgm(lt, rt, cfg)
     _exact(v, vp)
     _exact(d, dp)
+
+
+def _maxprop_inputs(shape, dev, seed=3):
+    """A K7 field the way the row-sharded filter builds one: capped sizes
+    (≤ 801) over the link masks of a speckle case."""
+    disp, valid = (torch.from_numpy(a).to(dev) for a in _speckle_case(shape, seed))
+    cx, cy = speckle._connectivity(disp, valid, 5.0)
+    rng = np.random.default_rng(seed)
+    field = torch.from_numpy(rng.integers(0, 802, shape).astype(np.int32)).to(dev)
+    return field, cx, cy
+
+
+@pytest.mark.parametrize("iters", [1, 3, 480])
+@pytest.mark.parametrize("shape", [(40, 70), (9, 33), (120, 752), (480, 752)])
+def test_maxprop_kernel(dev, shape, iters):
+    field, cx, cy = _maxprop_inputs(shape, dev)
+    _build.reset_launch_counts()
+    got = speckle_kernel.max_propagate(field, cx, cy, iters)
+    assert speckle_kernel.MAXPROP.launches == 1
+    _exact(got, speckle._max_propagate(field, cx, cy, iters))
+    _exact(field, _maxprop_inputs(shape, dev)[0])      # the input is left as it was
+
+
+@pytest.mark.parametrize("rounds", [1, 2, 64])
+@pytest.mark.parametrize("shape", [(40, 70), (120, 752)])
+def test_band_labels_kernel(dev, shape, rounds):
+    disp, valid = (torch.from_numpy(a).to(dev) for a in _speckle_case(shape))
+    cx, cy = speckle._connectivity(disp, valid, 5.0)
+    H, W = shape
+    lab = torch.where(valid, torch.arange(H * W, dtype=torch.int32, device=dev).reshape(H, W)
+                      + 7 * H * W, torch.full((), 8 * H * W, dtype=torch.int32, device=dev))
+    _build.reset_launch_counts()
+    got = speckle_kernel.band_labels(lab, cx, cy, rounds)
+    assert speckle_kernel.BAND_LABELS.launches == 1 and speckle_kernel.MAXPROP.launches == 0
+    _exact(got, speckle._label_rounds(lab, cx, cy, rounds))
+
+
+def _mesh_pipelines(cfg, n, H=96, W=128):
+    from ros_gpu_stereo_processor_tpu_torch import StereoPipeline
+    from ros_gpu_stereo_processor_tpu_torch.parallel.mesh import make_mesh
+
+    model = calib.StereoCameraModel.from_calibs(
+        *(calib.CameraCalib(W, H, np.array([[110.0, 0, 64], [0, 110.0, 48], [0, 0, 1.0]]),
+                            np.array([-0.37, 0.11, 0.0, 0.0, 0.0]), np.eye(3),
+                            np.hstack([np.array([[105.0, 0, 62], [0, 105.0, 47],
+                                                 [0, 0, 1.0]]),
+                                       np.array([[tx], [0.0], [0.0]])]), nm)
+          for tx, nm in ((0.0, "left"), (-10.5, "right"))))
+    return (StereoPipeline(model, cfg, mesh=make_mesh(n, devices=["cuda:0"] * n)),
+            StereoPipeline(model, cfg, mesh=make_mesh(n, devices=["cpu"] * n)))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(lr_check=True), dict(algorithm="sgm")],
+                         ids=["bm", "bm_lr_check", "sgm"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_mesh_pipeline_on_card_equals_cpu_mesh(dev, n, kw):
+    """Bands on one card (``["cuda:0"] * n``) against the same mesh on the
+    CPU: every output exact (xyz within rtol 1e-6), and the launches of one
+    frame: K1 twice per band, the matcher's kernels once per band, K7 once
+    per band, K3 never."""
+    from ros_gpu_stereo_processor_tpu_torch import Outputs, PipelineConfig, SpeckleConfig
+
+    cfg = PipelineConfig(
+        stereobm=StereoBMConfig(num_disparities=32, block_size=9, texture_threshold=5, **kw),
+        speckle=SpeckleConfig(max_speckle_size=40))
+    gpu, cpu = _mesh_pipelines(cfg, n)
+    left, right, _ = synthetic_stereo_pair(96, 128, max_disparity=24, seed=3)
+    _build.reset_launch_counts()
+    got = gpu.process(left, right, Outputs.all()).fetch()
+    k = _build.kernels()
+    sgm_on = kw.get("algorithm") == "sgm"
+    assert k["remap_bilinear_u8"].launches == 2 * n
+    assert k["bm_fused"].launches == (0 if sgm_on else n * (2 if kw.get("lr_check") else 1))
+    assert k["sgm_cost_down"].launches == (n if sgm_on else 0)
+    assert k["speckle_maxprop"].launches == n
+    assert k["speckle_band_labels"].launches >= 1
+    assert k["speckle_labels"].launches == 0
+    want = cpu.process(left, right, Outputs.all()).fetch()
+    for name, w in want.items():
+        g = got[name]
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if name == "pointcloud_xyz":
+            np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+            np.testing.assert_allclose(g, w, rtol=1e-6, atol=0)
+        elif name == "pointcloud_rgb":
+            np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32))
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=name)
+    for p in (gpu, cpu):
+        p.senders.shutdown()
