@@ -11,17 +11,23 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      per source, in parallel);
   3. holds each kernel against its plain PyTorch version, both on the card,
      at the main paths' shapes (752×480, block 15) and times both with CUDA
-     events: K1 rectification remap (uint8 mono and RGB exact, float32
-     within rtol 1e-6), K2 fused block matcher at 64 disparities (raw maps
-     and gated output exact, default config, ``refine_disparity``,
-     ``uniqueness_ratio=15``), K3 speckle labels at 64 rounds (exact), and
-     the SGM kernels K4 cost + down path, K5 path aggregation (the frame's
-     three calls) and K6 winner-take-all at 64 and 128 disparities with
-     quantised storage and at 64 with float32 storage (P1 7.5, P2 93.25),
-     all exact; K7 max-propagation on one band of the 4-band split
-     (120×752, its field and masks built by the row-sharded speckle filter
-     from a BM frame's disparity) at 480 rounds and at a count that stops
-     before convergence, and the band label rounds beside it, both exact;
+     events (``ms``, host enqueue included) and the kernel's device time
+     and device launches per call with ``torch.profiler`` (``device_ms``):
+     K1 rectification remap at widths 752 and 751 (uint8 mono and RGB
+     exact, float32 within rtol 1e-6; one device launch per call; against
+     ``grid_sample`` on both clocks), K2 fused block matcher at 64
+     disparities (raw maps and gated output exact, default config,
+     ``refine_disparity``, ``uniqueness_ratio=15``), K3 speckle labels
+     (exact at 1, 2, one short of the rounds the frame needs, those rounds
+     and 64), and the SGM kernels K4 cost + down path, K5 path aggregation
+     (the frame's three calls) and K6 winner-take-all at 64 and 128
+     disparities with quantised storage and at 64 with float32 storage (P1
+     7.5, P2 93.25), all exact; K7 max-propagation on one band of the
+     4-band split (120×752, its field and masks built by the row-sharded
+     speckle filter from a BM frame's disparity) and the band label rounds
+     beside it, exact at the same kinds of round counts (up to 480 and 64);
+     K3, K7 and the band label rounds at most 2 device launches per call
+     (the persistent walk and a memset);
   4. runs ``StereoPipeline`` on the card at 752×480, ``Outputs.all()``, over
      synthetic frames, for each main path:
        * block matching (default config, 64 disparities): 41 frames, each
@@ -43,7 +49,8 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      NaN positions and rtol 1e-5, ``pointcloud_rgb`` bitwise;
   5. prints the seconds of each phase, one JSON line per path with its
      frame times, one JSON line with each kernel's launches, error, times
-     and bound, and as its last line ``{"ok": true, "device": {...}}``.
+     (events and device) and bound, and as its last line
+     ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` adds a ``torch.profiler`` window over a few pipelined
 frames of each path, prints the device time by kernel and the device's
@@ -144,6 +151,68 @@ def cuda_ms(torch, fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_cost(torch, fn, reps, calls=1):
+    """(device ms, device kernels + memsets + copies) per wrapper call of
+    ``fn()``, which makes ``calls`` calls, from a ``torch.profiler`` window
+    over ``reps`` runs: every device event's self time, summed.  Unlike
+    ``cuda_ms`` this leaves out the host's enqueue time.  Fails if the
+    profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):      # a window that records nothing is tried twice more
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.count, e.self_device_time_total) for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+        if rows:
+            n = reps * calls
+            return sum(t for _, t in rows) / 1e3 / n, sum(c for c, _ in rows) / n
+    raise AssertionError("the profiler recorded no device time")
+
+
+def timed(torch, fn, plain, reps=KERNEL_REPS, calls=1, most_launches=None):
+    """A kernel row's times: host-inclusive ``ms`` (CUDA events), the
+    profiler's ``device_ms`` and device launches per call, and the plain
+    version's ms.  Fails if a call makes more than ``most_launches`` device
+    launches (kernels, memsets and copies)."""
+    dev_ms, per_call = device_cost(torch, fn, reps, calls)
+    if most_launches is not None and per_call > most_launches:
+        raise AssertionError(f"{per_call} device launches per call, more than {most_launches}")
+    return {"ms": cuda_ms(torch, fn, reps) / calls, "device_ms": dev_ms,
+            "device_launches_per_call": per_call,
+            "plain_ms": cuda_ms(torch, plain, PLAIN_REPS) / calls}
+
+
+def check_round_counts(torch, name, kern, plain, large):
+    """``kern(k)`` equals ``plain(k)`` at k = 1, 2, one short of the rounds
+    the field needs, those rounds and ``large``.  The rounds needed are the
+    least count whose result equals the one at ``large`` (monotone in the
+    count, so bisect).  Returns (rounds needed, max |err|)."""
+    full = kern(large)
+    lo, hi = 1, large
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if torch.equal(kern(mid), full):
+            hi = mid
+        else:
+            lo = mid + 1
+    err = 0.0
+    for k in sorted({1, 2, max(lo - 1, 1), lo, large}):
+        got, want = kern(k), plain(k)
+        torch.cuda.synchronize()
+        require_equal(f"{name} at {k} rounds", got, want)
+        err = max(err, max_abs(got, want))
+    short = kern(max(lo - 1, 1))
+    log(f"{name}: exact at 1, 2, {max(lo - 1, 1)}, {lo} and {large} rounds; converges in "
+        f"{lo}; at {max(lo - 1, 1)} rounds "
+        f"{'stops before convergence' if not torch.equal(short, full) else 'is converged'}")
+    return lo, err
 
 
 def bound(nbytes: float, nops: float):
@@ -312,77 +381,59 @@ def check_sgm_kernels(torch, sgm_kernel, stereobm, rect, cfg, p1, p2):
         "K6": (vol * (cs + 2 * es) + 3 * H * W * 4, 7 * vol),
     }
     times = {
-        "K4": (cuda_ms(torch, lambda: sgm_kernel.cost_and_down(lf, rf, cfg, p1, p2, cdt, edt),
-                       KERNEL_REPS),
-               cuda_ms(torch, lambda: sgm_kernel.cost_and_down_plain(lf, rf, cfg, p1, p2,
-                                                                     cdt, edt), PLAIN_REPS)),
-        "K5": (cuda_ms(torch, k5(sgm_kernel.aggregate), KERNEL_REPS) / 3,
-               cuda_ms(torch, k5(sgm_kernel.aggregate_plain), PLAIN_REPS) / 3),
-        "K6": (cuda_ms(torch, lambda: sgm_kernel.wta(cost, ev, eh, cfg), KERNEL_REPS),
-               cuda_ms(torch, lambda: sgm_kernel.wta_plain(cost, ev, eh, cfg), PLAIN_REPS)),
+        "K4": timed(torch, lambda: sgm_kernel.cost_and_down(lf, rf, cfg, p1, p2, cdt, edt),
+                    lambda: sgm_kernel.cost_and_down_plain(lf, rf, cfg, p1, p2, cdt, edt)),
+        "K5": timed(torch, k5(sgm_kernel.aggregate), k5(sgm_kernel.aggregate_plain), calls=3),
+        "K6": timed(torch, lambda: sgm_kernel.wta(cost, ev, eh, cfg),
+                    lambda: sgm_kernel.wta_plain(cost, ev, eh, cfg)),
     }
     out = {}
     for k in ("K4", "K5", "K6"):
         b_ms, by = bound(*work[k])
-        out[k] = {"max_abs_err": err[k], "ms": times[k][0], "plain_ms": times[k][1],
-                  "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+        out[k] = {"max_abs_err": err[k], **times[k], "bound_ms": b_ms, "bound_by": by,
+                  "library_ms": None}
     return out
 
 
 def check_k7(torch, speckle, speckle_kernel, frontend, mesh, disp, valid, sp_cfg):
     """K7 and the band label rounds on band 1 of the mesh's split of one BM
-    frame, against their plain versions on the card, exact; then their
-    times and bounds.  K7 runs at 4·H_b rounds and at one round short of
-    the rounds this field needs."""
+    frame, against their plain versions on the card, exact at several round
+    counts (up to 4·H_b for K7, 64 for the label rounds); then their times
+    and bounds.  Each call must make at most 2 device launches (the walk and
+    the memset of its flags)."""
     bands = frontend.speckle_size_fields(
         mesh.split(disp), mesh.split(valid), mesh,
         max_speckle_size=sp_cfg.max_speckle_size, max_diff=sp_cfg.max_diff)
     field, cx, cy = bands[1]
     hb, w = field.shape
     iters = 4 * hb
-    full = speckle_kernel.max_propagate(field, cx, cy, iters)
-    require_equal(f"K7 at {iters} rounds", full, speckle._max_propagate(field, cx, cy, iters))
-    # the rounds this field needs: the least count that gives the converged
-    # field (the result is monotone in the count, so bisect)
-    lo, hi = 1, iters
-    while lo < hi:
-        mid = (lo + hi) // 2
-        if torch.equal(speckle_kernel.max_propagate(field, cx, cy, mid), full):
-            hi = mid
-        else:
-            lo = mid + 1
-    rounds = lo
-    short = max(1, rounds - 1)
-    got = speckle_kernel.max_propagate(field, cx, cy, short)
-    require_equal(f"K7 at {short} rounds", got, speckle._max_propagate(field, cx, cy, short))
-    stopped_early = not torch.equal(got, full)
-    log(f"K7 band 1 of {mesh.size} ({hb}x{w}): converged in {rounds} rounds; at {short} "
-        f"rounds {'stops before convergence' if stopped_early else 'is converged'}; "
-        f"{int((full != field).sum())} pixels raised")
-    err = max(max_abs(full, speckle._max_propagate(field, cx, cy, iters)),
-              max_abs(got, speckle._max_propagate(field, cx, cy, short)))
+    rounds, err = check_round_counts(
+        torch, f"K7 band 1 of {mesh.size} ({hb}x{w})",
+        lambda k: speckle_kernel.max_propagate(field, cx, cy, k),
+        lambda k: speckle._max_propagate(field, cx, cy, k), iters)
+    log(f"K7: {int((speckle_kernel.max_propagate(field, cx, cy, iters) != field).sum())} "
+        f"pixels raised")
 
-    # the band label rounds: 2 rounds from the band's raster labels
+    # the band label rounds from the band's raster labels
     pix = (hb * w + torch.arange(hb * w, dtype=torch.int32, device=field.device)).reshape(hb, w)
     sentinel = torch.full((), disp.numel(), dtype=torch.int32, device=field.device)
     lab = torch.where(mesh.split(valid)[1], pix, sentinel)
-    bl = speckle_kernel.band_labels(lab, cx, cy, 2)
-    bl_plain = speckle._label_rounds(lab, cx, cy, 2)
-    require_equal("band label rounds", bl, bl_plain)
+    bl_rounds, bl_err = check_round_counts(
+        torch, "band label rounds", lambda k: speckle_kernel.band_labels(lab, cx, cy, k),
+        lambda k: speckle._label_rounds(lab, cx, cy, k), 64)
 
     nbytes = hb * w * (4 + 1 + 1 + 4)
     out = {}
-    for key, fn, plain, r in (
+    for key, fn, plain, r, e in (
             ("K7", lambda: speckle_kernel.max_propagate(field, cx, cy, iters),
-             lambda: speckle._max_propagate(field, cx, cy, iters), rounds),
+             lambda: speckle._max_propagate(field, cx, cy, iters), rounds, err),
             ("BL", lambda: speckle_kernel.band_labels(lab, cx, cy, 2),
-             lambda: speckle._label_rounds(lab, cx, cy, 2), 2)):
+             lambda: speckle._label_rounds(lab, cx, cy, 2), 2, bl_err)):
         b_ms, by = bound(nbytes, 2 * 2 * r * hb * w)
-        out[key] = {"max_abs_err": err if key == "K7" else max_abs(bl, bl_plain),
-                    "ms": cuda_ms(torch, fn, KERNEL_REPS),
-                    "plain_ms": cuda_ms(torch, plain, PLAIN_REPS),
+        out[key] = {"max_abs_err": e, **timed(torch, fn, plain, most_launches=2),
                     "bound_ms": b_ms, "bound_by": by, "library_ms": None}
     out["K7"]["rounds_to_converge"] = rounds
+    out["BL"]["rounds_to_converge"] = bl_rounds
     return out
 
 
@@ -434,36 +485,54 @@ def main() -> int:
         mono = torch.from_numpy(np.stack([l0, r0])).to(dev)
         rgb = torch.from_numpy(
             np.random.default_rng(1).integers(0, 256, (2, H, W, 3), np.uint8)).to(dev)
-        errs = []
-        for label, imgs in (("mono", mono), ("rgb", rgb)):
-            got = remap_kernel.rectify(imgs, maps)
-            want = remap.rectify_pair(imgs, maps)
-            torch.cuda.synchronize()
-            require_equal(f"K1 {label}", got, want)
-            errs.append(max_abs(got, want))
         f32 = mono.float() * 0.37
-        got = remap_kernel.rectify(f32, maps)
-        want = remap.rectify_pair(f32, maps)
-        torch.cuda.synchronize()
-        if not torch.allclose(got, want, rtol=1e-6, atol=0):
-            raise AssertionError(f"K1 float32: max |diff| {max_abs(got, want)}")
-        log(f"K1 remap float32 max |diff| {max_abs(got, want)} (rtol 1e-6)")
+        # full width (the vector variant) and one column short (751: the
+        # scalar variant for widths that are not a multiple of 4)
+        errs = []
+        for width in (W, W - 1):
+            m = maps[:, :, :width]
+            for label, imgs in (("mono", mono), ("rgb", rgb)):
+                got = remap_kernel.rectify(imgs, m)
+                want = remap.rectify_pair(imgs, m)
+                torch.cuda.synchronize()
+                require_equal(f"K1 {label} at width {width}", got, want)
+                errs.append(max_abs(got, want))
+            got = remap_kernel.rectify(f32, m)
+            want = remap.rectify_pair(f32, m)
+            torch.cuda.synchronize()
+            if not torch.allclose(got, want, rtol=1e-6, atol=0):
+                raise AssertionError(f"K1 float32 at width {width}: max |diff| "
+                                     f"{max_abs(got, want)}")
+            log(f"K1 remap at width {width}: uint8 mono and RGB exact, float32 max |diff| "
+                f"{max_abs(got, want)} (rtol 1e-6)")
         # the yardstick: grid_sample (bilinear, zeros, align_corners) on the
         # same maps, float32 (it has no uint8 mode); the port never calls it
         img_f = mono.float()[:, None]
         scale = torch.tensor([2.0 / (W - 1), 2.0 / (H - 1)], device=dev)
         grid = maps * scale - 1.0
+
+        def library():
+            return F.grid_sample(img_f, grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=True)
+
         b_ms, by = bound(2 * H * W * (1 + 8 + 1), 20 * 2 * H * W)
+        lib_dev_ms, _ = device_cost(torch, library, KERNEL_REPS)
+        odd = maps[:, :, :W - 1].contiguous()
+        odd_dev_ms, _ = device_cost(torch, lambda: remap_kernel.rectify(mono, odd), KERNEL_REPS)
         results["K1"] = {
             "max_abs_err": max(errs),
-            "ms": cuda_ms(torch, lambda: remap_kernel.rectify(mono, maps), KERNEL_REPS),
-            "plain_ms": cuda_ms(torch, lambda: remap.rectify_pair(mono, maps), PLAIN_REPS),
+            **timed(torch, lambda: remap_kernel.rectify(mono, maps),
+                    lambda: remap.rectify_pair(mono, maps), most_launches=1),
             "bound_ms": b_ms, "bound_by": by,
-            "library_ms": cuda_ms(torch, lambda: F.grid_sample(
-                img_f, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
-                KERNEL_REPS),
+            "library_ms": cuda_ms(torch, library, KERNEL_REPS),
+            "library_device_ms": lib_dev_ms,
+            "odd_width_ms": cuda_ms(torch, lambda: remap_kernel.rectify(mono, odd),
+                                    KERNEL_REPS),
+            "odd_width_device_ms": odd_dev_ms,
         }
-        log("K1 remap: uint8 mono and RGB exact;", results["K1"])
+        k1 = results["K1"]
+        log(f"K1 remap: device {k1['device_ms']:.5f} ms against grid_sample's "
+            f"{lib_dev_ms:.5f} ms ({k1['device_ms'] / lib_dev_ms:.3f}x);", k1)
 
     # -- K2 fused block matcher -------------------------------------------
     with phase("K2", seconds):
@@ -489,9 +558,8 @@ def main() -> int:
         b_ms, by = bound(5 * H * W * 4, 8 * H * W * base.num_disparities)
         results["K2"] = {
             "max_abs_err": max(errs),
-            "ms": cuda_ms(torch, lambda: stereobm_kernel.fused_raw(lf, rf, base), KERNEL_REPS),
-            "plain_ms": cuda_ms(torch, lambda: stereobm_kernel.fused_raw_plain(lf, rf, base),
-                                PLAIN_REPS),
+            **timed(torch, lambda: stereobm_kernel.fused_raw(lf, rf, base),
+                    lambda: stereobm_kernel.fused_raw_plain(lf, rf, base)),
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
         }
         log("K2 block matcher: raw maps and gated output exact;", results["K2"])
@@ -500,21 +568,19 @@ def main() -> int:
     with phase("K3", seconds):
         disp, valid = stereobm_kernel.compute_disparity_fused(rect[0], rect[1], base)
         sp = port.SpeckleConfig()
-        lab = speckle_kernel.labels(disp, valid, sp.max_diff, sp.propagation_iters)
-        lab_plain = speckle._labels_scan(disp, valid, sp.max_diff, sp.propagation_iters)
-        torch.cuda.synchronize()
-        require_equal("K3 labels", lab, lab_plain)
-        # the rounds this frame needs: the first count that gives the final labels
-        rounds = next(k for k in range(1, sp.propagation_iters + 1)
-                      if torch.equal(speckle_kernel.labels(disp, valid, sp.max_diff, k), lab))
+        rounds, err = check_round_counts(
+            torch, "K3 labels", lambda k: speckle_kernel.labels(disp, valid, sp.max_diff, k),
+            lambda k: speckle._labels_scan(disp, valid, sp.max_diff, k),
+            sp.propagation_iters)
         b_ms, by = bound(H * W * (4 + 1 + 4), 2 * 2 * rounds * H * W)
         results["K3"] = {
-            "max_abs_err": max_abs(lab, lab_plain),
-            "ms": cuda_ms(torch, lambda: speckle_kernel.labels(
-                disp, valid, sp.max_diff, sp.propagation_iters), KERNEL_REPS),
-            "plain_ms": cuda_ms(torch, lambda: speckle._labels_scan(
-                disp, valid, sp.max_diff, sp.propagation_iters), PLAIN_REPS),
+            "max_abs_err": err,
+            **timed(torch, lambda: speckle_kernel.labels(
+                        disp, valid, sp.max_diff, sp.propagation_iters),
+                    lambda: speckle._labels_scan(
+                        disp, valid, sp.max_diff, sp.propagation_iters), most_launches=2),
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "rounds_to_converge": rounds,
         }
         log(f"K3 speckle labels: exact; converged in {rounds} rounds;", results["K3"])
 

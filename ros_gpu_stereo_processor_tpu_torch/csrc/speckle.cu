@@ -28,43 +28,54 @@
 //
 // What bounds it on the H100: latency, not bandwidth.  The whole state is
 // under 3 MB and stays in L2; a round is two passes, each a chain of
-// dependent steps along every line.  One warp takes one line: it stages the
-// line's values and links in shared memory (independent loads, all in
-// flight at once), then walks the line 32 elements at a time with a
-// segmented scan in registers (five shuffle steps per chunk), forward for
-// the prefix extreme of each run and backward for the suffix extreme of
-// those, which is the run's extreme.  A row pass is then about 2 * W / 32
-// chunk steps long, not W dependent steps.  Skipped rounds still cost their
-// two launches.
+// dependent steps along every line, and only the rounds the data needs (a
+// dozen at 752x480) do work.  A host loop of one launch per pass costs
+// 2 * iters launches (128 for K3 at 64 rounds, 960 for K7 at 480) whatever
+// the data needs, so the walk is one launch.  Inside it, each pass's
+// dependent chain along a line sets the time: walked 32 elements at a time,
+// a line costs one five-step shuffle scan per chunk, which measured most of
+// a round on the card; staging, the uncoalesced column accesses and the
+// grid barriers take the rest.
 //
-// Design: K3 first runs one kernel that computes the initial labels and the
-// two link masks (uint8, read by every later pass); K7 and the band labels
-// are given theirs.  Then, per round, the line kernel over the rows (element
-// stride 1) and over the columns (element stride W), templated on the
-// combining operation.  Early exit needs no host read-back: round i records
-// in changed[i] whether anything moved, and both passes of round i return
-// at once when changed[i - 1] is 0.  All 2 * iters launches are enqueued by
-// one C call.  Values are plain int32: no composite keys, no 2^19 limit (the
+// Design: one cooperative launch per call, persistent over the rounds.
+// Every warp takes lines warp, warp + n_warps, ... of a pass (grid-stride).
+// It stages a line's values and links in shared memory (eight loads a lane
+// in flight), then scans it forward for the prefix extreme of each run and
+// backward for the suffix extreme of those, which is the run's extreme.
+// Each direction is a raking scan: every lane walks its own segment of
+// about len / 32 elements, one segmented warp scan joins the segments, and
+// every lane fixes up its segment's head or tail.  For lines of up to 992
+// elements (line_extremes_regs) the segment stays in registers through both
+// directions; longer lines go through shared memory (line_scan).  Columns
+// of up to 992 elements are staged and written back a tile of adjacent
+// columns per block (column_tiles), so that a warp's loads and stores touch
+// a few cache lines rather than 32.  A grid
+// barrier (cooperative_groups' grid sync) follows each pass; after the
+// column pass every thread reads changed[round] and all leave the loop
+// together once a round has moved nothing, so the passes and their order
+// are the plain version's at every `iters`, converged or not.  Round 0's
+// row pass reads the source instead of the output: K3 computes the initial
+// labels and both link masks there (the old init kernel), K7 and the band
+// labels read the given field (the old copy), and it writes every element
+// of the output.  The grid is at most what can be co-resident (the
+// cooperative launch's condition; the occupancy query is cached per device
+// and block shape).  Values written by other blocks are read through L2
+// (__ldcg), after the barrier.  The host enqueues one memset of `changed`
+// (zeroing it inside the kernel would race with round 0's writes) and the
+// kernel.  Values are plain int32: no composite keys, no 2^19 limit (the
 // TPU K7's, which packs the field beside segment ids).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include <map>
+#include <mutex>
+#include <tuple>
 
-__global__ void speckle_init(const float* __restrict__ disp,
-                             const uint8_t* __restrict__ valid, int* __restrict__ lab,
-                             uint8_t* __restrict__ conn_x, uint8_t* __restrict__ conn_y,
-                             int H, int W, float max_diff) {
-  const long long n = static_cast<long long>(H) * W;
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int y = static_cast<int>(i / W), x = static_cast<int>(i - static_cast<long long>(y) * W);
-  const bool v = valid[i] != 0;
-  lab[i] = v ? static_cast<int>(i) : static_cast<int>(n);
-  conn_x[i] = v && x > 0 && valid[i - 1] && fabsf(disp[i] - disp[i - 1]) <= max_diff;
-  conn_y[i] = v && y > 0 && valid[i - W] && fabsf(disp[i] - disp[i - W]) <= max_diff;
-}
+namespace cg = cooperative_groups;
+
+namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -81,8 +92,8 @@ struct MaxOp {
 // Segmented inclusive scan with Op across the warp, towards higher lanes
 // (down = false) or towards lower lanes (down = true).  `stop` marks the
 // lane where a run starts (scanning up) or ends (scanning down); on return
-// it says whether such a lane lies between this lane and the chunk's edge,
-// i.e. whether the run is closed within the chunk.
+// it says whether such a lane lies between this lane and the warp's first
+// lane (last, scanning down), i.e. whether the run is closed within the warp.
 template <class Op>
 __device__ __forceinline__ int seg_scan(int v, bool& stop, int lane, bool down) {
   for (int off = 1; off < 32; off <<= 1) {
@@ -96,162 +107,412 @@ __device__ __forceinline__ int seg_scan(int v, bool& stop, int lane, bool down) 
   return v;
 }
 
-// One warp per line: give every run of linked elements the run's Op-extreme
-// value.  Element k of line i is val[i * line_stride + k * elem_stride];
-// link[...] says whether it is linked to element k - 1 (0 at k = 0).
-template <class Op>
-__global__ void speckle_lines(int* __restrict__ val, const uint8_t* __restrict__ link,
-                              int n_lines, int len, long long line_stride,
-                              long long elem_stride, int* __restrict__ changed, int round) {
-  if (round > 0 && changed[round - 1] == 0) return;
-  extern __shared__ int smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int line = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (line >= n_lines) return;              // whole warps only: no block barrier below
-  const int region = 2 * len + (len + 3) / 4;   // ints: values, prefix extremes, links
-  int* s_val = smem + warp * region;
-  int* s_fwd = s_val + len;
-  uint8_t* s_link = reinterpret_cast<uint8_t*>(s_fwd + len);
-  int* L = val + line * line_stride;
-  const uint8_t* C = link + line * line_stride;
-  for (int k = lane; k < len; k += 32) {
-    s_val[k] = L[k * elem_stride];
-    s_link[k] = C[k * elem_stride];
-  }
-  __syncwarp();
-
-  // forward: prefix extreme of each run; a run starts where link is 0
-  int carry = Op::kNone;
-  for (int base = 0; base < len; base += 32) {
-    const int k = base + lane;
-    const bool in = k < len;
-    bool closed = !in || !s_link[k];
-    int v = seg_scan<Op>(in ? s_val[k] : Op::kNone, closed, lane, false);
-    if (!closed) v = Op::f(v, carry);
-    if (in) s_fwd[k] = v;
-    carry = __shfl_sync(kFull, v, 31);
-  }
-  __syncwarp();
-
-  // backward: suffix extreme of the prefix extremes = the run's extreme; a
-  // run ends at k where element k + 1 is not linked to it
-  bool moved = false;
-  carry = Op::kNone;
-  for (int base = ((len - 1) / 32) * 32; base >= 0; base -= 32) {
-    const int k = base + lane;
-    const bool in = k < len;
-    bool closed = !in || k == len - 1 || !s_link[k + 1];
-    int v = seg_scan<Op>(in ? s_fwd[k] : Op::kNone, closed, lane, true);
-    if (!closed) v = Op::f(v, carry);
-    if (in && v != s_val[k]) {
-      L[k * elem_stride] = v;
-      moved = true;
-    }
-    carry = __shfl_sync(kFull, v, 0);
-  }
-  if (__any_sync(kFull, moved) && lane == 0) changed[round] = 1;
-}
-
-constexpr int kStageBytes = 48 * 1024;     // shared memory without opt-in
-constexpr int kMaxStageBytes = 227 * 1024; // the most an H100 block may use
-constexpr int kMaxWarps = 8;               // lines (warps) per block
-
-struct LinePass {
-  int warps;          // lines per block
-  long long smem;     // dynamic shared memory per block, bytes
+struct Args {
+  const float* disp;      // K3: (H, W) disparity
+  const uint8_t* valid;   // K3: (H, W) validity
+  const int* field;       // K7, band labels: (H, W) initial values
+  int* val;               // (H, W) output, propagated in place
+  uint8_t* conn_x;        // (H, W) linked to the left neighbour (K3 writes it)
+  uint8_t* conn_y;        // (H, W) linked to the upper neighbour (K3 writes it)
+  int* changed;           // `iters` flags, zeroed before the launch
+  int H, W, iters;
+  float max_diff;
 };
 
-LinePass line_pass(int len) {
-  const long long per_line = 4LL * (2 * len + (len + 3) / 4);
-  long long w = kStageBytes / per_line;
-  w = w < 1 ? 1 : (w > kMaxWarps ? kMaxWarps : w);
-  return {static_cast<int>(w), w * per_line};
-}
+// Shared memory of one warp for a line of `len` elements, in ints: values,
+// scanned values, then links (bytes).
+__host__ __device__ constexpr int line_region(int len) { return 2 * len + (len + 3) / 4; }
 
+// One direction of the segmented scan along a staged line: dst[k] = the
+// Op-extreme of src over k's run from its start to k (forward, `down`
+// false) or from k to its end (backward); dst may be src.  A raking scan:
+//   1. each lane walks its own segment of S consecutive elements in order,
+//      S odd and at least len / 32 (so the lanes' segments start in 32
+//      different banks), keeping the extreme since the last run stop;
+//   2. one segmented warp scan over the 32 segment aggregates gives each
+//      segment the extreme carried into it from the segments before it;
+//   3. each lane gives that carry to the elements of its segment whose run
+//      reaches the segment's edge without stopping.
+// The dependent chain is about 2 * S steps plus one warp scan, where a walk
+// chunk by chunk takes a warp scan per 32 elements; the result is the same
+// (the same extremes over the same runs).
 template <class Op>
-cudaError_t allow_smem(long long bytes) {
-  if (bytes > kMaxStageBytes) return cudaErrorInvalidValue;
-  if (bytes <= kStageBytes) return cudaSuccess;
-  return cudaFuncSetAttribute(speckle_lines<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-// `iters` rounds of Op-propagation of `val` (H, W) in place: a row pass over
-// conn_x, then a column pass over conn_y, each round skipped on the device
-// once a round has changed nothing.  `changed`: `iters` int32 scratch.
-template <class Op>
-cudaError_t propagate(int* val, const uint8_t* conn_x, const uint8_t* conn_y, int* changed,
-                      int H, int W, int iters, cudaStream_t s) {
-  cudaError_t err;
-  if (iters <= 0) return cudaSuccess;
-  if ((err = cudaMemsetAsync(changed, 0, sizeof(int) * iters, s)) != cudaSuccess) return err;
-  const LinePass rows = line_pass(W), cols = line_pass(H);
-  if ((err = allow_smem<Op>(rows.smem > cols.smem ? rows.smem : cols.smem)) != cudaSuccess)
-    return err;
-  for (int round = 0; round < iters; ++round) {
-    speckle_lines<Op><<<(H + rows.warps - 1) / rows.warps, 32 * rows.warps,
-                        static_cast<size_t>(rows.smem), s>>>(val, conn_x, H, W, W, 1, changed,
-                                                             round);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    speckle_lines<Op><<<(W + cols.warps - 1) / cols.warps, 32 * cols.warps,
-                        static_cast<size_t>(cols.smem), s>>>(val, conn_y, W, H, 1, W, changed,
-                                                             round);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+__device__ void line_scan(const int* src, int* dst, const uint8_t* s_link, int len, int lane,
+                          bool down) {
+  const int S = ((len + 31) / 32) | 1;
+  const int b = min(lane * S, len), e = min(b + S, len);
+  int acc = Op::kNone;
+  bool closed = false;          // a run stops inside the segment
+  if (!down) {
+    for (int j = b; j < e; ++j) {
+      const bool start = !s_link[j];
+      acc = start ? src[j] : Op::f(acc, src[j]);
+      closed = closed || start;
+      dst[j] = acc;
+    }
+  } else {
+    for (int j = e - 1; j >= b; --j) {
+      const bool end = j == len - 1 || !s_link[j + 1];
+      acc = end ? src[j] : Op::f(acc, src[j]);
+      closed = closed || end;
+      dst[j] = acc;
+    }
   }
+  int carry = seg_scan<Op>(acc, closed, lane, down);     // out of each segment
+  carry = down ? __shfl_down_sync(kFull, carry, 1) : __shfl_up_sync(kFull, carry, 1);
+  if (lane == (down ? 31 : 0)) carry = Op::kNone;        // into each segment
+  if (!down) {
+    for (int j = b; j < e && s_link[j]; ++j) dst[j] = Op::f(dst[j], carry);
+  } else {
+    for (int j = e - 1; j >= b && j < len - 1 && s_link[j + 1]; --j)
+      dst[j] = Op::f(dst[j], carry);
+  }
+  __syncwarp();
+}
+
+// Both directions of line_scan at once, for lines of at most 32 * kMax
+// elements (segments of at most kMax, which fit in registers): each lane
+// loads its segment and its run starts and ends (bit masks) from shared
+// memory once, and every step after that is in registers.  dst[k] = the
+// Op-extreme of src over k's run; element k is src[k * stride], its link
+// s_link[k * link_stride].
+constexpr int kMaxSeg = 31;     // lines up to 992 elements: 752 x 480 frames
+
+template <class Op>
+__device__ void line_extremes_regs(const int* src, int* dst, const uint8_t* s_link, int len,
+                                   int lane, int stride = 1, int link_stride = 1) {
+  const int S = ((len + 31) / 32) | 1;
+  const int b = min(lane * S, len), n = min(b + S, len) - b;
+  int x[kMaxSeg];
+  unsigned start = 0, end = 0;    // bit j: element b + j starts / ends a run
+#pragma unroll
+  for (int j = 0; j < kMaxSeg; ++j) {
+    if (j < n) {
+      x[j] = src[(b + j) * stride];
+      start |= static_cast<unsigned>(!s_link[(b + j) * link_stride]) << j;
+      end |= static_cast<unsigned>(b + j == len - 1 || !s_link[(b + j + 1) * link_stride]) << j;
+    }
+  }
+  // forward: prefix extremes, then the carry into the elements before the
+  // segment's first run start
+  int acc = Op::kNone;
+#pragma unroll
+  for (int j = 0; j < kMaxSeg; ++j) {
+    if (j < n) {
+      acc = (start >> j & 1) ? x[j] : Op::f(acc, x[j]);
+      x[j] = acc;
+    }
+  }
+  bool closed = start != 0;
+  int carry = __shfl_up_sync(kFull, seg_scan<Op>(acc, closed, lane, false), 1);
+  if (lane == 0) carry = Op::kNone;
+  const unsigned head = start ? (start & (0u - start)) - 1 : ~0u;
+#pragma unroll
+  for (int j = 0; j < kMaxSeg; ++j)
+    if (j < n && (head >> j & 1)) x[j] = Op::f(x[j], carry);
+  // backward: suffix extremes, then the carry into the elements after the
+  // segment's last run end
+  acc = Op::kNone;
+#pragma unroll
+  for (int j = kMaxSeg - 1; j >= 0; --j) {
+    if (j < n) {
+      acc = (end >> j & 1) ? x[j] : Op::f(acc, x[j]);
+      x[j] = acc;
+    }
+  }
+  closed = end != 0;
+  carry = __shfl_down_sync(kFull, seg_scan<Op>(acc, closed, lane, true), 1);
+  if (lane == 31) carry = Op::kNone;
+  const unsigned tail = end ? ~((2u << (31 - __clz(end))) - 1) : ~0u;
+#pragma unroll
+  for (int j = 0; j < kMaxSeg; ++j) {
+    if (j < n) dst[(b + j) * stride] = (tail >> j & 1) ? Op::f(x[j], carry) : x[j];
+  }
+  __syncwarp();
+}
+
+// One warp walks one line: every run of linked elements gets the run's
+// Op-extreme value.  Rows (element stride 1, links conn_x) or columns
+// (element stride W, links conn_y).  `first` is round 0's row pass, which
+// reads the source and writes every element; with `scan` false (iters = 0)
+// it only writes the source.  Sets changed[round] if a value moved.
+template <class Op, bool kLabels>
+__device__ void walk_line(const Args& a, int line, bool rows, bool first, bool scan, int round,
+                          int* s_val, int lane) {
+  const int len = rows ? a.W : a.H;
+  const int line_stride = rows ? a.W : 1, elem_stride = rows ? 1 : a.W;
+  int* s_fwd = s_val + len;
+  uint8_t* s_link = reinterpret_cast<uint8_t*>(s_fwd + len);
+  const uint8_t* link = rows ? a.conn_x : a.conn_y;
+  const int base_i = line * line_stride;
+  constexpr int kBatch = 8;     // elements a lane keeps in flight
+
+  if (!first) {
+    // values written by other blocks in the last pass: through L2
+    for (int k0 = lane; k0 < len; k0 += 32 * kBatch) {
+      int v[kBatch];
+      uint8_t l[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int k = k0 + 32 * u;
+        if (k < len) {
+          v[u] = __ldcg(a.val + base_i + k * elem_stride);
+          l[u] = __ldcg(link + base_i + k * elem_stride);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int k = k0 + 32 * u;
+        if (k < len) {
+          s_val[k] = v[u];
+          s_link[k] = l[u];
+        }
+      }
+    }
+  } else if (kLabels) {
+    // the initial labels and both link masks (rows: line = y, k = x); every
+    // load is made, at a clamped index, so that none waits on another
+    const int n = a.H * a.W;
+#pragma unroll 4
+    for (int k = lane; k < len; k += 32) {
+      const int i = base_i + k;
+      const int il = k > 0 ? i - 1 : i, iu = line > 0 ? i - a.W : i;
+      const uint8_t v = a.valid[i], vl = a.valid[il], vu = a.valid[iu];
+      const float d = a.disp[i], dl = a.disp[il], du = a.disp[iu];
+      const bool cx = v && k > 0 && vl && fabsf(d - dl) <= a.max_diff;
+      const bool cy = v && line > 0 && vu && fabsf(d - du) <= a.max_diff;
+      a.conn_x[i] = cx;
+      a.conn_y[i] = cy;
+      s_val[k] = v ? i : n;
+      s_link[k] = cx;
+    }
+  } else {
+#pragma unroll 4
+    for (int k = lane; k < len; k += 32) {
+      s_val[k] = a.field[base_i + k];
+      s_link[k] = a.conn_x[base_i + k];
+    }
+  }
+  __syncwarp();
+  if (!scan) {
+    for (int k = lane; k < len; k += 32) a.val[base_i + k * elem_stride] = s_val[k];
+    return;
+  }
+
+  // forward: prefix extreme of each run; backward: suffix extreme of the
+  // prefix extremes = the run's extreme
+  if (len <= 32 * kMaxSeg) {
+    line_extremes_regs<Op>(s_val, s_fwd, s_link, len, lane);
+  } else {
+    line_scan<Op>(s_val, s_fwd, s_link, len, lane, false);
+    line_scan<Op>(s_fwd, s_fwd, s_link, len, lane, true);
+  }
+
+  bool moved = false;
+  for (int k = lane; k < len; k += 32) {
+    const int v = s_fwd[k];
+    const bool diff = v != s_val[k];
+    if (diff || first) a.val[base_i + k * elem_stride] = v;
+    moved = moved || diff;
+  }
+  if (__any_sync(kFull, moved) && lane == 0) a.changed[round] = 1;
+  __syncwarp();     // the warp's next line reuses the staging buffers
+}
+
+// Shared memory of the column tiles: `warps` columns of `h` elements, values
+// and extremes at an odd pitch, links at a pitch of `warps` bytes.
+__host__ __device__ constexpr int tile_bytes(int h, int warps) {
+  return 8 * h * (warps | 1) + h * warps;
+}
+
+// The column pass for columns of at most 32 * kMaxSeg elements.  A block
+// takes `warps` adjacent columns at a time: its threads stage them together
+// into a row-major tile (a warp's load covers 32 / warps rows of `warps`
+// adjacent elements, a few cache lines, where a warp walking one column
+// touches 32), each warp scans one column of the tile in registers, and the
+// block writes back the elements that changed the same way.  Every thread
+// of the block runs the same loop, so the block barriers are reached by all.
+template <class Op>
+__device__ void column_tiles(const Args& a, int round, int* smem) {
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int pitch = warps | 1;    // odd: the lanes' segments start in distinct banks
+  int* t_val = smem;
+  int* t_out = t_val + a.H * pitch;
+  uint8_t* t_link = reinterpret_cast<uint8_t*>(t_out + a.H * pitch);
+  const int c = threadIdx.x % warps, y0 = threadIdx.x / warps;   // 32 rows per sweep
+  constexpr int kBatch = 8;
+  bool moved = false;
+  for (int x0 = blockIdx.x * warps; x0 < a.W; x0 += gridDim.x * warps) {
+    const bool mine = x0 + c < a.W;
+    for (int ya = y0; ya < a.H; ya += 32 * kBatch) {
+      int v[kBatch];
+      uint8_t l[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int y = ya + 32 * u;
+        if (mine && y < a.H) {
+          v[u] = __ldcg(a.val + y * a.W + x0 + c);
+          l[u] = __ldcg(a.conn_y + y * a.W + x0 + c);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int y = ya + 32 * u;
+        if (mine && y < a.H) {
+          t_val[y * pitch + c] = v[u];
+          t_link[y * warps + c] = l[u];
+        }
+      }
+    }
+    __syncthreads();
+    if (x0 + warp < a.W)
+      line_extremes_regs<Op>(t_val + warp, t_out + warp, t_link + warp, a.H, lane, pitch, warps);
+    __syncthreads();
+    for (int y = y0; mine && y < a.H; y += 32) {
+      const int e = t_out[y * pitch + c];
+      if (e != t_val[y * pitch + c]) {
+        a.val[y * a.W + x0 + c] = e;
+        moved = true;
+      }
+    }
+    __syncthreads();              // the next columns overwrite the tile
+  }
+  if (__any_sync(kFull, moved) && lane == 0) a.changed[round] = 1;
+}
+
+// The whole walk: `iters` rounds (a row pass, then a column pass), leaving
+// after the first round that moved nothing.  Every thread of every block
+// reaches every grid barrier: no thread returns early.
+template <class Op, bool kLabels>
+__global__ void __launch_bounds__(256) propagate_kernel(Args a) {
+  extern __shared__ int smem[];
+  cg::grid_group grid = cg::this_grid();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int gwarp = blockIdx.x * warps + warp, n_warps = gridDim.x * warps;
+  const int rounds = a.iters > 0 ? a.iters : 1;
+  for (int round = 0; round < rounds; ++round) {
+    int* s_row = smem + warp * line_region(a.W);
+    for (int line = gwarp; line < a.H; line += n_warps)
+      walk_line<Op, kLabels>(a, line, true, round == 0, a.iters > 0, round, s_row, lane);
+    if (a.iters <= 0) break;          // uniform: only the source was written
+    grid.sync();
+    if (a.H <= 32 * kMaxSeg) {
+      column_tiles<Op>(a, round, smem);
+    } else {
+      int* s_col = smem + warp * line_region(a.H);
+      for (int line = gwarp; line < a.W; line += n_warps)
+        walk_line<Op, kLabels>(a, line, false, false, true, round, s_col, lane);
+    }
+    if (round + 1 == rounds) break;   // uniform: the last round needs no exit test
+    grid.sync();
+    if (__ldcg(a.changed + round) == 0) break;   // same flag, same barrier, every thread
+  }
+}
+
+constexpr int kMaxStageBytes = 227 * 1024; // the most an H100 block may use
+constexpr int kMaxWarps = 8;               // warps per block
+
+// Blocks of this kernel that fit on the current device at once, for a block
+// of `threads` with `smem` bytes of dynamic shared memory: the occupancy
+// query times the SM count, cached per (device, threads, smem).  A miss
+// first lifts the kernel's dynamic shared memory limit on the device to the
+// card's most (always the same value, so calls never race on it).
+template <class Op, bool kLabels>
+cudaError_t coresident_blocks(int threads, int smem, int* blocks) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, int, int>, int> cache;
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(dev, threads, smem);
+  const auto hit = cache.find(key);
+  if (hit != cache.end()) {
+    *blocks = hit->second;
+    return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(propagate_kernel<Op, kLabels>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxStageBytes);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, propagate_kernel<Op, kLabels>,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (per_sm * sms <= 0) return cudaErrorCooperativeLaunchTooLarge;
+  cache[key] = per_sm * sms;
+  *blocks = per_sm * sms;
   return cudaSuccess;
 }
 
-// out = field, then `iters` rounds of Op-propagation of out.
-template <class Op>
-int propagate_copy(const void* field, void* out, const void* conn_x, const void* conn_y,
-                   void* changed, int H, int W, int iters, void* stream) {
-  const long long n = static_cast<long long>(H) * W;
-  if (n == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemcpyAsync(out, field, sizeof(int) * n, cudaMemcpyDeviceToDevice, s);
+// Zero `changed`, then launch the persistent walk over `a`.
+template <class Op, bool kLabels>
+int propagate(Args a, cudaStream_t s) {
+  if (static_cast<long long>(a.H) * a.W == 0) return 0;
+  const int len = a.H > a.W ? a.H : a.W;
+  const int per_line = 4 * line_region(len);
+  if (per_line > kMaxStageBytes) return static_cast<int>(cudaErrorInvalidValue);
+  int warps = kMaxStageBytes / per_line;
+  warps = warps > kMaxWarps ? kMaxWarps : warps;
+  const int threads = 32 * warps;
+  int smem = warps * per_line;          // one line per warp
+  if (a.H <= 32 * kMaxSeg && tile_bytes(a.H, warps) > smem) smem = tile_bytes(a.H, warps);
+  int blocks;
+  cudaError_t err = coresident_blocks<Op, kLabels>(threads, smem, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(propagate<Op>(static_cast<int*>(out),
-                                        static_cast<const uint8_t*>(conn_x),
-                                        static_cast<const uint8_t*>(conn_y),
-                                        static_cast<int*>(changed), H, W, iters, s));
+  const int wanted = (len + warps - 1) / warps;
+  if (wanted < blocks) blocks = wanted;
+  const int flags = a.iters > 0 ? a.iters : 1;
+  if ((err = cudaMemsetAsync(a.changed, 0, sizeof(int) * flags, s)) != cudaSuccess)
+    return static_cast<int>(err);
+  void* params[] = {&a};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(&propagate_kernel<Op, kLabels>), dim3(blocks),
+      dim3(threads), params, static_cast<size_t>(smem), s));
 }
 
 }  // namespace
 
 // K3.  disp: (H, W) float32; valid: (H, W) bool (one byte each); lab: (H, W)
-// int32 output; conn_x, conn_y: (H, W) uint8 scratch; changed: `iters`
+// int32 output; conn_x, conn_y: (H, W) uint8 scratch; changed: max(iters, 1)
 // int32 scratch.
 extern "C" int speckle_labels(const void* disp, const void* valid, void* lab, void* conn_x,
                               void* conn_y, void* changed, int H, int W, float max_diff,
                               int iters, void* stream) {
-  const long long n = static_cast<long long>(H) * W;
-  if (n == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  speckle_init<<<static_cast<unsigned>((n + threads - 1) / threads), threads, 0, s>>>(
-      static_cast<const float*>(disp), static_cast<const uint8_t*>(valid),
-      static_cast<int*>(lab), static_cast<uint8_t*>(conn_x), static_cast<uint8_t*>(conn_y),
-      H, W, max_diff);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(propagate<MinOp>(static_cast<int*>(lab),
-                                           static_cast<const uint8_t*>(conn_x),
-                                           static_cast<const uint8_t*>(conn_y),
-                                           static_cast<int*>(changed), H, W, iters, s));
+  Args a{static_cast<const float*>(disp), static_cast<const uint8_t*>(valid), nullptr,
+         static_cast<int*>(lab), static_cast<uint8_t*>(conn_x), static_cast<uint8_t*>(conn_y),
+         static_cast<int*>(changed), H, W, iters, max_diff};
+  return propagate<MinOp, true>(a, static_cast<cudaStream_t>(stream));
 }
+
+namespace {
+
+template <class Op>
+int propagate_field(const void* field, void* out, const void* conn_x, const void* conn_y,
+                    void* changed, int H, int W, int iters, void* stream) {
+  Args a{nullptr, nullptr, static_cast<const int*>(field), static_cast<int*>(out),
+         static_cast<uint8_t*>(const_cast<void*>(conn_x)),
+         static_cast<uint8_t*>(const_cast<void*>(conn_y)), static_cast<int*>(changed), H, W,
+         iters, 0.0f};
+  return propagate<Op, false>(a, static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
 
 // K7.  field: (H, W) int32; out: (H, W) int32 output; conn_x, conn_y: (H, W)
 // bool link masks (element linked to its left / upper neighbour); changed:
-// `iters` int32 scratch.
+// max(iters, 1) int32 scratch.
 extern "C" int speckle_maxprop(const void* field, void* out, const void* conn_x,
                                const void* conn_y, void* changed, int H, int W, int iters,
                                void* stream) {
-  return propagate_copy<MaxOp>(field, out, conn_x, conn_y, changed, H, W, iters, stream);
+  return propagate_field<MaxOp>(field, out, conn_x, conn_y, changed, H, W, iters, stream);
 }
 
 // The band-local label rounds: the same arguments, min in place of max.
 extern "C" int speckle_band_labels(const void* field, void* out, const void* conn_x,
                                    const void* conn_y, void* changed, int H, int W,
                                    int iters, void* stream) {
-  return propagate_copy<MinOp>(field, out, conn_x, conn_y, changed, H, W, iters, stream);
+  return propagate_field<MinOp>(field, out, conn_x, conn_y, changed, H, W, iters, stream);
 }

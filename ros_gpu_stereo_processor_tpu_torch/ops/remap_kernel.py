@@ -2,9 +2,10 @@
 
 The port of ``ros_gpu_stereo_processor_tpu/ops/remap_pallas.py`` (TPU kernel
 ``_kernel``).  :func:`rectify` is the op's one dispatch point: a CUDA tensor
-launches the kernel, every side and channel of the stack in one launch; a
-CPU tensor runs the plain version, ``ops/remap.py::rectify_pair``.  There is
-no fallback between the two.
+launches the kernel, every side and channel of the stack in one launch (32-bit
+indices, so every tensor stays under 2^31 elements); a CPU tensor runs the
+plain version, ``ops/remap.py::rectify_pair``.  There is no fallback between
+the two.
 """
 
 from __future__ import annotations
@@ -51,6 +52,8 @@ def _launch(images: torch.Tensor, maps: torch.Tensor) -> torch.Tensor:
     S, Hs, Ws = images.shape[:3]
     C = images.shape[3] if images.dim() == 4 else 1
     H, W = maps.shape[1:3]
+    if max(images.numel(), maps.numel(), S * H * W * C) >= 2**31:
+        raise ValueError("the remap kernel takes tensors under 2^31 elements")
     out = torch.empty((S, H, W) + tuple(images.shape[3:]), dtype=images.dtype,
                       device=images.device)
     with torch.cuda.device(images.device):

@@ -18,7 +18,9 @@ apart.  Component sizing stays in ops/speckle.py.
 Each function is its op's one dispatch point: a CUDA tensor launches the
 kernel, a CPU tensor runs the plain version of ops/speckle.py
 (``_labels_scan``, ``_max_propagate``, ``_label_rounds``).  Kernels and
-plain versions agree bit for bit at the same round count.
+plain versions agree bit for bit at the same round count.  On the card each
+call is one memset and one cooperative launch that runs every round; a
+refused launch raises.
 """
 
 from __future__ import annotations

@@ -15,7 +15,9 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "ros_gpu_stereo_processor_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "ros_gpu_stereo_processor_tpu")
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                       ROOT / "scripts" / "torch_remap_blocks.py",
+                                       ROOT / "scripts" / "torch_speckle_rounds.py"]
 
 
 def _imports(tree):

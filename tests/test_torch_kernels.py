@@ -55,18 +55,42 @@ def _maps(H, W, D=(-0.37, 0.11, 0.001, -0.002, 0.0)):
     return np.stack([m, m[:, ::-1].copy()])
 
 
-@pytest.mark.parametrize("shape", [(60, 80), (37, 129), (480, 752)])
+# widths ≡ 0, 1, 2, 3 (mod 4): the vector and the scalar variants
+@pytest.mark.parametrize("shape", [(60, 80), (37, 129), (41, 130), (60, 83), (480, 752)])
 def test_remap_kernel(dev, shape):
+    """Mono, RGB and float32 stacks, on the distorted maps and on maps that
+    leave the image (stretched and shifted, and a few far outside it)."""
     H, W = shape
     rng = np.random.default_rng(1)
-    maps = torch.from_numpy(_maps(H, W)).to(dev)
+    inside = _maps(H, W)
+    leaving = inside * np.float32(1.3) - np.array([W / 6, H / 7], np.float32)
+    leaving[:, ::7, ::5] = np.array([-1e5, 3e5], np.float32)
+    for m in (inside, leaving):
+        maps = torch.from_numpy(np.ascontiguousarray(m, np.float32)).to(dev)
+        for img in (rng.integers(0, 256, (2, H, W), np.uint8),
+                    rng.integers(0, 256, (2, H, W, 3), np.uint8),
+                    (rng.random((2, H, W)) * 300).astype(np.float32),
+                    (rng.random((2, H, W, 3)) * 300).astype(np.float32)):
+            imgs = torch.from_numpy(img).to(dev)
+            before = remap_kernel.KERNELS[imgs.dtype].launches
+            _exact(remap_kernel.rectify(imgs, maps), remap.rectify_pair(imgs, maps))
+            assert remap_kernel.KERNELS[imgs.dtype].launches == before + 1
+
+
+def test_remap_kernel_unaligned_maps(dev):
+    """Contiguous maps that start off a 16-byte boundary, at a width that is
+    a multiple of 4, take the scalar variant and stay exact."""
+    H, W = 40, 64
+    rng = np.random.default_rng(2)
+    m = torch.from_numpy(_maps(H, W)).to(dev)
+    flat = torch.zeros(m.numel() + 1, dtype=torch.float32, device=dev)
+    flat[1:] = m.reshape(-1)
+    maps = flat[1:].view(m.shape)
+    assert maps.is_contiguous() and maps.data_ptr() % 16 != 0
     for img in (rng.integers(0, 256, (2, H, W), np.uint8),
-                rng.integers(0, 256, (2, H, W, 3), np.uint8),
-                (rng.random((2, H, W)) * 300).astype(np.float32)):
+                rng.integers(0, 256, (2, H, W, 3), np.uint8)):
         imgs = torch.from_numpy(img).to(dev)
-        before = remap_kernel.KERNELS[imgs.dtype].launches
-        _exact(remap_kernel.rectify(imgs, maps), remap.rectify_pair(imgs, maps))
-        assert remap_kernel.KERNELS[imgs.dtype].launches == before + 1
+        _exact(remap_kernel.rectify(imgs, maps), remap.rectify_pair(imgs, m))
 
 
 @pytest.mark.parametrize("kw", [
@@ -109,12 +133,40 @@ def _speckle_case(shape, seed=7):
     return disp, valid
 
 
-@pytest.mark.parametrize("iters", [1, 3, 64])
-@pytest.mark.parametrize("shape", [(40, 70), (37, 257), (9, 33), (480, 752)])
-def test_label_kernel(dev, shape, iters):
+def _round_counts(run, large):
+    """{0, 1, 2, rounds − 1, rounds, large}, where ``rounds`` is the least
+    count at which ``run(count)`` equals ``run(large)`` (the result is
+    monotone in the count, so bisect)."""
+    full = run(large)
+    lo, hi = 0, large
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if torch.equal(run(mid), full):
+            hi = mid
+        else:
+            lo = mid + 1
+    return sorted({0, 1, 2, max(lo - 1, 0), lo, large})
+
+
+# one-pixel-wide and one-pixel-tall fields; 16×9000, whose 9000 columns
+# outnumber the warps that can be resident at once (each walks several) and
+# whose rows are too long for register segments; 9000×16, whose columns are
+# too long for the column tiles
+SPECKLE_SHAPES = [(40, 70), (37, 257), (9, 33), (1, 300), (300, 1), (16, 9000), (9000, 16),
+                  (480, 752)]
+
+
+@pytest.mark.parametrize("shape", SPECKLE_SHAPES)
+def test_label_kernel(dev, shape):
+    """K3 at 0, 1, 2, one short of convergence, the rounds the field needs,
+    and 64 rounds: exact, one launch per call."""
     disp, valid = (torch.from_numpy(a).to(dev) for a in _speckle_case(shape))
-    got = speckle_kernel.labels(disp, valid, 5.0, iters)
-    _exact(got, speckle._labels_scan(disp, valid, 5.0, iters))
+    counts = _round_counts(lambda k: speckle_kernel.labels(disp, valid, 5.0, k), 64)
+    for iters in counts:
+        before = speckle_kernel.KERNEL.launches
+        got = speckle_kernel.labels(disp, valid, 5.0, iters)
+        assert speckle_kernel.KERNEL.launches == before + 1
+        _exact(got, speckle._labels_scan(disp, valid, 5.0, iters))
 
 
 def test_filter_speckles_counts_launches(dev):
@@ -223,29 +275,34 @@ def _maxprop_inputs(shape, dev, seed=3):
     return field, cx, cy
 
 
-@pytest.mark.parametrize("iters", [1, 3, 480])
-@pytest.mark.parametrize("shape", [(40, 70), (9, 33), (120, 752), (480, 752)])
-def test_maxprop_kernel(dev, shape, iters):
+@pytest.mark.parametrize("shape", SPECKLE_SHAPES[:7] + [(120, 752), (480, 752)])
+def test_maxprop_kernel(dev, shape):
+    """K7 at 0, 1, 2, one short of convergence, the rounds the field needs,
+    and 480 rounds: exact, one launch per call, the input left as it was."""
     field, cx, cy = _maxprop_inputs(shape, dev)
-    _build.reset_launch_counts()
-    got = speckle_kernel.max_propagate(field, cx, cy, iters)
-    assert speckle_kernel.MAXPROP.launches == 1
-    _exact(got, speckle._max_propagate(field, cx, cy, iters))
-    _exact(field, _maxprop_inputs(shape, dev)[0])      # the input is left as it was
+    for iters in _round_counts(lambda k: speckle_kernel.max_propagate(field, cx, cy, k), 480):
+        _build.reset_launch_counts()
+        got = speckle_kernel.max_propagate(field, cx, cy, iters)
+        assert speckle_kernel.MAXPROP.launches == 1
+        _exact(got, speckle._max_propagate(field, cx, cy, iters))
+    _exact(field, _maxprop_inputs(shape, dev)[0])
 
 
-@pytest.mark.parametrize("rounds", [1, 2, 64])
-@pytest.mark.parametrize("shape", [(40, 70), (120, 752)])
-def test_band_labels_kernel(dev, shape, rounds):
+@pytest.mark.parametrize("shape", [(40, 70), (1, 300), (300, 1), (16, 9000), (9000, 16),
+                                   (120, 752)])
+def test_band_labels_kernel(dev, shape):
+    """The band label rounds at 0, 1, 2, one short of convergence, the
+    rounds the field needs, and 64 rounds: exact, on their own counter."""
     disp, valid = (torch.from_numpy(a).to(dev) for a in _speckle_case(shape))
     cx, cy = speckle._connectivity(disp, valid, 5.0)
     H, W = shape
     lab = torch.where(valid, torch.arange(H * W, dtype=torch.int32, device=dev).reshape(H, W)
                       + 7 * H * W, torch.full((), 8 * H * W, dtype=torch.int32, device=dev))
-    _build.reset_launch_counts()
-    got = speckle_kernel.band_labels(lab, cx, cy, rounds)
-    assert speckle_kernel.BAND_LABELS.launches == 1 and speckle_kernel.MAXPROP.launches == 0
-    _exact(got, speckle._label_rounds(lab, cx, cy, rounds))
+    for rounds in _round_counts(lambda k: speckle_kernel.band_labels(lab, cx, cy, k), 64):
+        _build.reset_launch_counts()
+        got = speckle_kernel.band_labels(lab, cx, cy, rounds)
+        assert speckle_kernel.BAND_LABELS.launches == 1 and speckle_kernel.MAXPROP.launches == 0
+        _exact(got, speckle._label_rounds(lab, cx, cy, rounds))
 
 
 def _mesh_pipelines(cfg, n, H=96, W=128):
