@@ -17,17 +17,20 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      exact, float32 within rtol 1e-6; one device launch per call; against
      ``grid_sample`` on both clocks), K2 fused block matcher at 64
      disparities (raw maps and gated output exact, default config,
-     ``refine_disparity``, ``uniqueness_ratio=15``), K3 speckle labels
+     ``refine_disparity``, ``uniqueness_ratio=15``; raw maps exact and
+     device time on a mesh band's 134×752 launch), K3 speckle labels
      (exact at 1, 2, one short of the rounds the frame needs, those rounds
-     and 64), and the SGM kernels K4 cost + down path, K5 path aggregation
+     and 64), and the SGM kernels K4 cost + down path (the cost stage's and
+     the down walk's device time apart), K5 path aggregation
      (the frame's three calls) and K6 winner-take-all at 64 and 128
      disparities with quantised storage and at 64 with float32 storage (P1
      7.5, P2 93.25), all exact; K7 max-propagation on one band of the
      4-band split (120×752, its field and masks built by the row-sharded
      speckle filter from a BM frame's disparity) and the band label rounds
      beside it, exact at the same kinds of round counts (up to 480 and 64);
-     K3, K7 and the band label rounds at most 2 device launches per call
-     (the persistent walk and a memset);
+     K3, K7 and the band label rounds 2 device launches per call (the
+     persistent walk and a memset), K4 2 (cost stage, down walk), the
+     others 1;
   4. runs ``StereoPipeline`` on the card at 752×480, ``Outputs.all()``, over
      synthetic frames, for each main path:
        * block matching (default config, 64 disparities): 41 frames, each
@@ -80,6 +83,7 @@ SGM_COMPARED = 2
 MESH_FRAMES = 11    # mesh path: 1 warm-up + 10 timed
 MESH_COMPARED = 2
 BANDS = 4
+BAND_ROWS = 134     # a mesh band's launch: 480 / BANDS rows and 2 x 7 halo rows
 KERNEL_REPS = 20
 PLAIN_REPS = 3
 H, W = 480, 752
@@ -153,40 +157,61 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_cost(torch, fn, reps, calls=1):
-    """(device ms, device kernels + memsets + copies) per wrapper call of
-    ``fn()``, which makes ``calls`` calls, from a ``torch.profiler`` window
-    over ``reps`` runs: every device event's self time, summed.  Unlike
-    ``cuda_ms`` this leaves out the host's enqueue time.  Fails if the
-    profiler records no device time."""
+def device_rows(torch, fn, reps, least=0):
+    """[(key, count, self device µs)] of every device event (kernels,
+    memsets, copies) in a ``torch.profiler`` window over ``reps`` runs of
+    ``fn()``.  The profiler now and then drops a window's events: a window
+    with no device time, or with fewer than ``least`` device events per run,
+    is tried twice more, then the phase fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):      # a window that records nothing is tried twice more
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        rows = [(e.count, e.self_device_time_total) for e in prof.key_averages()
+        rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
                 if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
-        if rows:
-            n = reps * calls
-            return sum(t for _, t in rows) / 1e3 / n, sum(c for c, _ in rows) / n
-    raise AssertionError("the profiler recorded no device time")
+        if rows and sum(c for _, c, _ in rows) >= least * reps:
+            return rows
+    raise AssertionError(f"the profiler recorded no device time, or fewer than {least} "
+                         f"device events per run, in three windows")
 
 
-def timed(torch, fn, plain, reps=KERNEL_REPS, calls=1, most_launches=None):
+def device_cost(torch, fn, reps, calls=1, launches=0):
+    """(device ms, device kernels + memsets + copies) per wrapper call of
+    ``fn()``, which makes ``calls`` calls of ``launches`` device launches
+    each (0: not known): every device event's self time, summed.  Unlike
+    ``cuda_ms`` this leaves out the host's enqueue time."""
+    rows = device_rows(torch, fn, reps, launches * calls)
+    n = reps * calls
+    return sum(t for _, _, t in rows) / 1e3 / n, sum(c for _, c, _ in rows) / n
+
+
+def timed(torch, fn, plain, launches, reps=KERNEL_REPS, calls=1, split=()):
     """A kernel row's times: host-inclusive ``ms`` (CUDA events), the
     profiler's ``device_ms`` and device launches per call, and the plain
-    version's ms.  Fails if a call makes more than ``most_launches`` device
-    launches (kernels, memsets and copies)."""
-    dev_ms, per_call = device_cost(torch, fn, reps, calls)
-    if most_launches is not None and per_call > most_launches:
-        raise AssertionError(f"{per_call} device launches per call, more than {most_launches}")
-    return {"ms": cuda_ms(torch, fn, reps) / calls, "device_ms": dev_ms,
-            "device_launches_per_call": per_call,
-            "plain_ms": cuda_ms(torch, plain, PLAIN_REPS) / calls}
+    version's ms; for each name in ``split``, ``<name>_device_ms``: the
+    device time per call of the kernels whose name holds it, from the same
+    profiler window.  Each wrapper call must make exactly ``launches``
+    device launches (kernels, memsets and copies): fewer is a window that
+    lost events (tried again), more fails."""
+    rows = device_rows(torch, fn, reps, launches * calls)
+    n = reps * calls
+    per_call = sum(c for _, c, _ in rows) / n
+    if per_call > launches:
+        raise AssertionError(f"{per_call} device launches per call, more than {launches}")
+    out = {"ms": cuda_ms(torch, fn, reps) / calls,
+           "device_ms": sum(t for _, _, t in rows) / 1e3 / n,
+           "device_launches_per_call": per_call}
+    for name in split:
+        out[f"{name}_device_ms"] = sum(t for k, _, t in rows if name in k) / 1e3 / n
+        if out[f"{name}_device_ms"] == 0:
+            raise AssertionError(f"no device time under a kernel named {name}")
+    out["plain_ms"] = cuda_ms(torch, plain, PLAIN_REPS) / calls
+    return out
 
 
 def check_round_counts(torch, name, kern, plain, large):
@@ -382,10 +407,12 @@ def check_sgm_kernels(torch, sgm_kernel, stereobm, rect, cfg, p1, p2):
     }
     times = {
         "K4": timed(torch, lambda: sgm_kernel.cost_and_down(lf, rf, cfg, p1, p2, cdt, edt),
-                    lambda: sgm_kernel.cost_and_down_plain(lf, rf, cfg, p1, p2, cdt, edt)),
-        "K5": timed(torch, k5(sgm_kernel.aggregate), k5(sgm_kernel.aggregate_plain), calls=3),
+                    lambda: sgm_kernel.cost_and_down_plain(lf, rf, cfg, p1, p2, cdt, edt), 2,
+                    split=("sgm_cost", "sgm_walk")),
+        "K5": timed(torch, k5(sgm_kernel.aggregate), k5(sgm_kernel.aggregate_plain), 1,
+                    calls=3),
         "K6": timed(torch, lambda: sgm_kernel.wta(cost, ev, eh, cfg),
-                    lambda: sgm_kernel.wta_plain(cost, ev, eh, cfg)),
+                    lambda: sgm_kernel.wta_plain(cost, ev, eh, cfg), 1),
     }
     out = {}
     for k in ("K4", "K5", "K6"):
@@ -430,7 +457,7 @@ def check_k7(torch, speckle, speckle_kernel, frontend, mesh, disp, valid, sp_cfg
             ("BL", lambda: speckle_kernel.band_labels(lab, cx, cy, 2),
              lambda: speckle._label_rounds(lab, cx, cy, 2), 2, bl_err)):
         b_ms, by = bound(nbytes, 2 * 2 * r * hb * w)
-        out[key] = {"max_abs_err": e, **timed(torch, fn, plain, most_launches=2),
+        out[key] = {"max_abs_err": e, **timed(torch, fn, plain, 2),
                     "bound_ms": b_ms, "bound_by": by, "library_ms": None}
     out["K7"]["rounds_to_converge"] = rounds
     out["BL"]["rounds_to_converge"] = bl_rounds
@@ -518,11 +545,12 @@ def main() -> int:
         b_ms, by = bound(2 * H * W * (1 + 8 + 1), 20 * 2 * H * W)
         lib_dev_ms, _ = device_cost(torch, library, KERNEL_REPS)
         odd = maps[:, :, :W - 1].contiguous()
-        odd_dev_ms, _ = device_cost(torch, lambda: remap_kernel.rectify(mono, odd), KERNEL_REPS)
+        odd_dev_ms, _ = device_cost(torch, lambda: remap_kernel.rectify(mono, odd), KERNEL_REPS,
+                                    launches=1)
         results["K1"] = {
             "max_abs_err": max(errs),
             **timed(torch, lambda: remap_kernel.rectify(mono, maps),
-                    lambda: remap.rectify_pair(mono, maps), most_launches=1),
+                    lambda: remap.rectify_pair(mono, maps), 1),
             "bound_ms": b_ms, "bound_by": by,
             "library_ms": cuda_ms(torch, library, KERNEL_REPS),
             "library_device_ms": lib_dev_ms,
@@ -555,12 +583,25 @@ def main() -> int:
         raw_plain = stereobm_kernel.fused_raw_plain(lf, rf, base)
         for a, b, nm in zip(raw, raw_plain, ("disp_raw", "best_cost", "excl")):
             require_equal(f"K2 {nm}", a, b)
+        # the shape each mesh band launches: 120 rows and 2 x 7 halo rows
+        lb, rb = lf[:BAND_ROWS].contiguous(), rf[:BAND_ROWS].contiguous()
+        uq = base.replace(refine_disparity=True, uniqueness_ratio=15)
+        for c in (base, uq):
+            for a, b, nm in zip(stereobm_kernel.fused_raw(lb, rb, c),
+                                stereobm_kernel.fused_raw_plain(lb, rb, c),
+                                ("disp_raw", "best_cost", "excl")):
+                require_equal(f"K2 band {nm} refine={c.refine_disparity}", a, b)
+        band_dev_ms, _ = device_cost(torch, lambda: stereobm_kernel.fused_raw(lb, rb, base),
+                                     KERNEL_REPS, launches=1)
         b_ms, by = bound(5 * H * W * 4, 8 * H * W * base.num_disparities)
         results["K2"] = {
             "max_abs_err": max(errs),
             **timed(torch, lambda: stereobm_kernel.fused_raw(lf, rf, base),
-                    lambda: stereobm_kernel.fused_raw_plain(lf, rf, base)),
+                    lambda: stereobm_kernel.fused_raw_plain(lf, rf, base), 1),
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "band_rows": BAND_ROWS, "band_device_ms": band_dev_ms,
+            "band_ms": cuda_ms(torch, lambda: stereobm_kernel.fused_raw(lb, rb, base),
+                               KERNEL_REPS),
         }
         log("K2 block matcher: raw maps and gated output exact;", results["K2"])
 
@@ -578,7 +619,7 @@ def main() -> int:
             **timed(torch, lambda: speckle_kernel.labels(
                         disp, valid, sp.max_diff, sp.propagation_iters),
                     lambda: speckle._labels_scan(
-                        disp, valid, sp.max_diff, sp.propagation_iters), most_launches=2),
+                        disp, valid, sp.max_diff, sp.propagation_iters), 2),
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
             "rounds_to_converge": rounds,
         }

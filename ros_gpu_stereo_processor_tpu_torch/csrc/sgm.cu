@@ -35,22 +35,32 @@
 // covers the real H x W and nothing else.
 //
 // Exactness: the kernels do the plain versions' float32 operations in the
-// same order (the SAD as a column sum over the block rows, top to bottom,
-// then a row sum over the block columns, left to right; the WTA total as
-// (4c + ev) + eh), and the library builds with --fmad=false, so kernel and
-// plain version agree bit for bit in every mode, float32 included.
+// same order where order matters (the WTA total as (4c + ev) + eh; in mode
+// 2 the SAD as a column sum over the block rows, top to bottom, then a row
+// sum over the block columns, left to right), and the library builds with
+// --fmad=false, so kernel and plain version agree bit for bit in every mode,
+// float32 included.  In modes 0 and 1 the images are integer (the storage
+// contract: uint16 cost only for integer input), every prefiltered value is
+// an integer in [0, 2 cap] <= 126 and every partial SAD is an integer below
+// 2^24, so float32 sums them exactly in any order: there the cost stage
+// slides its sums.
 //
 // What bounds each on the H100 (752x480, 128 disparities, modes 0/1):
-//   sgm_cost_down: device-memory bytes in principle (it writes 46 MB of cost
-//     and 46 MB of excess), but this simple design recomputes the column sums
-//     for every row (no sliding window, which would change the float32
-//     summation order) and so does about 4 * block additions per (pixel, d):
-//     arithmetic and shared-memory reads.  A block owns one row and 32
-//     columns: it stages the L and R rows of the window (R with the nd - 1
-//     columns of disparity halo) in shared memory, forms all nd x (32 + 2r)
-//     column sums, then each thread writes (pixel, d) costs with consecutive
-//     threads on consecutive d, so the stores are coalesced.  The down walk
-//     is a second launch of the walk kernel inside the same call.
+//   sgm_cost_down: device-memory bytes (it writes 46 MB of cost and 46 MB of
+//     excess).  Cost stage, modes 0/1 (sgm_cost_slide_kernel): one warp per
+//     (32-column segment, strip of rows, 32 consecutive disparities), lane =
+//     d, the sad::sweep of sad_window.cuh: rows staged a step ahead by
+//     cp.async, column sums sliding down the rows (in registers for block
+//     15), window sums across the columns, O(1) per (pixel, d); per output
+//     row, lane j writes pixel j's 32 costs, consecutive d, as four 16-byte
+//     stores.  The strip height is chosen per shape (sad::pick_rows), so a
+//     134-row band fills the card as the whole image does.  Mode 2
+//     (sgm_cost_kernel): a block owns one row and 32 columns, stages the
+//     window's L and R rows (R with the nd - 1 columns of disparity halo) in
+//     shared memory, forms all nd x (32 + 2r) column sums top to bottom and
+//     the row sums left to right (about 4 * block additions per (pixel, d)):
+//     the plain version's order, on which mode 2's exactness rests.  The
+//     down walk is a second launch of the walk kernel inside the same call.
 //   sgm_aggregate: bytes (reads the cost and the incoming excess once, writes
 //     one excess volume) -- but a walk is a chain of dependent steps, and one
 //     warp per line gives only 480 (rows) or 752 (columns) warps, about 4 or 6
@@ -72,12 +82,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <type_traits>
+
+#include "sad_window.cuh"
+
 namespace {
 
 constexpr float kBig = 1e9f;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kCostTileX = 32;          // output columns per block of the cost kernel
+constexpr int kCostTileX = 32;          // output columns per block of the mode-2 cost kernel
 constexpr int kCostThreads = 256;
+constexpr int kSlideWarps = 4;          // most warp jobs per block of the sliding cost kernel
 constexpr int kWalkWarps = 4;           // path lines per block of the walk kernel
 constexpr int kWtaThreads = 128;
 constexpr long long kWtaMaxBlocks = 132 * 32;   // grid-stride beyond this
@@ -163,6 +179,48 @@ __global__ void sgm_cost_kernel(const float* __restrict__ lf, const float* __res
     for (int k = 1; k < win; ++k) c += row[k];
     cost[(static_cast<long long>(y) * W + x) * nd + dd] = st<CostT>(ok ? c : clampv);
   }
+}
+
+// Modes 0/1: cost[(y * W + x) * nd + dd] by sliding sums.  Warp job =
+// (strip, segment, chunk of 32 disparities), chunk fastest, so a block's
+// warps share their L columns and most R columns in L1.  Per output row,
+// lane j first masks pixel x0 + j's row of the tile, then lane l writes
+// candidate l of each pixel: one coalesced 64-byte store per pixel.
+__global__ void __launch_bounds__(kSlideWarps * 32)
+sgm_cost_slide_kernel(const float* __restrict__ lf, const float* __restrict__ rf,
+                      uint16_t* __restrict__ cost, int H, int W, int nd, int mind, int r,
+                      int ty, float clampv) {
+  extern __shared__ float smem[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nchunks = (nd + 31) >> 5;
+  const int segs = (W + sad::kSeg - 1) / sad::kSeg, strips = (H + ty - 1) / ty;
+  const long long job = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + w;
+  if (job >= static_cast<long long>(segs) * strips * nchunks) return;   // whole warps
+  const int chunk = static_cast<int>(job % nchunks);
+  const long long tile = job / nchunks;
+  const int x0 = static_cast<int>(tile % segs) * sad::kSeg;
+  const int y0 = static_cast<int>(tile / segs) * ty;
+  const int y1 = min(y0 + ty, H), ncols = min(sad::kSeg, W - x0);
+  const int dd0 = chunk * 32, n = min(32, nd - dd0);   // 32, or 16 in a last half chunk
+  float* scratch = smem + w * sad::scratch_floats(r);
+  float* T = sad::tile(scratch, r);
+  auto out_row = [&](int y) {
+    if (lane < ncols)   // lane = pixel: mask its own row of the tile
+      sad::mask_row(T + lane * sad::kT, x0 + lane, mind + dd0, r, W, n, clampv);
+    __syncwarp();
+    // lane = d: each pixel's 32 costs in one coalesced 64-byte store
+    uint16_t* dst = cost + (static_cast<long long>(y) * W + x0) * nd + dd0 + lane;
+    if (lane < n) {
+#pragma unroll 8
+      for (int j = 0; j < ncols; ++j)
+        dst[static_cast<long long>(j) * nd] = st<uint16_t>(T[j * sad::kT + lane]);
+    }
+  };
+  if (r == sad::kRegRadius)
+    sad::sweep<true, sad::kRegRadius>(lf, rf, scratch, H, W, r, x0, ncols, y0, y1, mind + dd0,
+                                      out_row);
+  else
+    sad::sweep<true>(lf, rf, scratch, H, W, r, x0, ncols, y0, y1, mind + dd0, out_row);
 }
 
 // One warp per path line (a column when vertical, else a row), walked
@@ -358,10 +416,43 @@ cudaError_t launch_walk(const void* cost, const void* exc_in, void* exc_out, int
   return cudaGetLastError();
 }
 
-template <typename CostT, typename ExcT>
-cudaError_t cost_down(const void* lf, const void* rf, void* cost, void* exc, int H, int W,
-                      int nd, int mind, int r, float clampv, float p1, float p2,
-                      cudaStream_t s) {
+// The cost stage of modes 0/1.  tile_rows: rows per warp strip (0:
+// sad::pick_rows).
+cudaError_t cost_slide(const void* lf, const void* rf, void* cost, int H, int W, int nd,
+                       int mind, int r, float clampv, int tile_rows, cudaStream_t s) {
+  const long long nchunks = (nd + 31) / 32, segs = (W + sad::kSeg - 1) / sad::kSeg;
+  // up to kSlideWarps warps a block, as many as the block size's scratch allows
+  const long long per_warp = sad::scratch_floats(r) * static_cast<long long>(sizeof(float));
+  const int warps = static_cast<int>(std::min<long long>(kSlideWarps, kSmemMax / per_warp));
+  if (warps < 1) return cudaErrorInvalidValue;
+  const long long smem = warps * per_warp;
+  // on the current device: let the launch (and the occupancy query) use up to kSmemMax
+  const cudaError_t err = cudaFuncSetAttribute(
+      sgm_cost_slide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (err != cudaSuccess) return err;
+  auto blocks_of = [&](int t) { return (segs * ((H + t - 1) / t) * nchunks + warps - 1) / warps; };
+  int ty = tile_rows;
+  if (ty <= 0) {
+    static int key[4] = {-1, -1, -1, -1}, picked = 0;   // the last shape's choice
+    const int k[4] = {H, W, nd, r};
+    if (!std::equal(k, k + 4, key)) {
+      picked = sad::pick_rows(sgm_cost_slide_kernel, warps * 32, [&](int) { return smem; },
+                              blocks_of, H, r, kSmemMax);
+      std::copy(k, k + 4, key);
+    }
+    ty = picked;
+  }
+  sgm_cost_slide_kernel<<<static_cast<unsigned>(blocks_of(ty)), warps * 32,
+                          static_cast<size_t>(smem), s>>>(
+      static_cast<const float*>(lf), static_cast<const float*>(rf), static_cast<uint16_t*>(cost),
+      H, W, nd, mind, r, ty, clampv);
+  return cudaGetLastError();
+}
+
+// The cost stage of mode 2, in the plain version's summation order.
+template <typename CostT>
+cudaError_t cost_plain_order(const void* lf, const void* rf, void* cost, int H, int W, int nd,
+                             int mind, int r, float clampv, cudaStream_t s) {
   const long long win = 2 * r + 1, cw = kCostTileX + 2 * r, rw = cw + nd - 1;
   const long long smem = (win * cw + win * rw + nd * cw) * static_cast<long long>(sizeof(float));
   if (smem > kSmemMax) return cudaErrorInvalidValue;
@@ -374,7 +465,20 @@ cudaError_t cost_down(const void* lf, const void* rf, void* cost, void* exc, int
   sgm_cost_kernel<CostT><<<grid, kCostThreads, static_cast<size_t>(smem), s>>>(
       static_cast<const float*>(lf), static_cast<const float*>(rf), static_cast<CostT*>(cost),
       H, W, nd, mind, r, clampv);
-  const cudaError_t err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+template <typename CostT, typename ExcT>
+cudaError_t cost_down(const void* lf, const void* rf, void* cost, void* exc, int H, int W,
+                      int nd, int mind, int r, float clampv, float p1, float p2, int tile_rows,
+                      cudaStream_t s) {
+  // the storage mode fixes the kernel: integer storage slides, float32 keeps
+  // the plain order
+  cudaError_t err;
+  if constexpr (std::is_same_v<CostT, float>)
+    err = cost_plain_order<CostT>(lf, rf, cost, H, W, nd, mind, r, clampv, s);
+  else
+    err = cost_slide(lf, rf, cost, H, W, nd, mind, r, clampv, tile_rows, s);
   if (err != cudaSuccess) return err;
   return launch_walk<CostT, ExcT>(cost, nullptr, exc, H, W, nd, p1, p2, 1, 0, s);
 }
@@ -415,16 +519,17 @@ cudaError_t wta(const void* cost, const void* ev, const void* eh, void* disp, vo
 
 // lf, rf: (H, W) float32 prefiltered images; cost, exc: (H, W, nd) outputs in
 // the storage types of `mode`.  Two launches: the cost volume, then the down
-// walk over it.
+// walk over it.  tile_rows: rows per warp strip of the mode 0/1 cost stage
+// (0: automatic; ignored in mode 2).
 extern "C" int sgm_cost_down(const void* lf, const void* rf, void* cost, void* exc, int H,
                              int W, int nd, int mind, int r, float clampv, float p1, float p2,
-                             int mode, void* stream) {
+                             int mode, int tile_rows, void* stream) {
   if (H == 0 || W == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case 0: return static_cast<int>(cost_down<uint16_t, uint8_t>(lf, rf, cost, exc, H, W, nd, mind, r, clampv, p1, p2, s));
-    case 1: return static_cast<int>(cost_down<uint16_t, int16_t>(lf, rf, cost, exc, H, W, nd, mind, r, clampv, p1, p2, s));
-    case 2: return static_cast<int>(cost_down<float, float>(lf, rf, cost, exc, H, W, nd, mind, r, clampv, p1, p2, s));
+    case 0: return static_cast<int>(cost_down<uint16_t, uint8_t>(lf, rf, cost, exc, H, W, nd, mind, r, clampv, p1, p2, tile_rows, s));
+    case 1: return static_cast<int>(cost_down<uint16_t, int16_t>(lf, rf, cost, exc, H, W, nd, mind, r, clampv, p1, p2, tile_rows, s));
+    case 2: return static_cast<int>(cost_down<float, float>(lf, rf, cost, exc, H, W, nd, mind, r, clampv, p1, p2, tile_rows, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

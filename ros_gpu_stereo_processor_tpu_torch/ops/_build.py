@@ -1,12 +1,13 @@
 """Build and bind the port's hand-written CUDA kernels (``csrc/*.cu``).
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` of the package, one
-process per source, all started together, and links the objects into one
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds), which ``ctypes`` loads.  The library goes into the package's
-``build/`` directory (git-ignored), under a name keyed by a hash of the
-sources and the flags, so an edited source is rebuilt and a stale library is
-never loaded.  Only the sources in the package are compiled.
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` of the package (which
+may include the ``csrc/*.cuh`` headers), one process per source, all
+started together, and links the objects into one shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds), which
+``ctypes`` loads.  The library goes into the package's ``build/`` directory
+(git-ignored), under a name keyed by a hash of the sources, the headers and
+the flags, so an edited source is rebuilt and a stale library is never
+loaded.  Only the sources in the package are compiled.
 
 Every C entry point takes device pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()`` after its launches;
@@ -62,9 +63,9 @@ def _sources() -> List[Path]:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libstereo_kernels_{h.hexdigest()[:16]}.so"

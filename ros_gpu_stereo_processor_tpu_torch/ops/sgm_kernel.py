@@ -46,7 +46,7 @@ BIG = bm_ops.BIG
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-COST_DOWN = _build.Kernel("sgm_cost_down", [_P] * 4 + [_I] * 5 + [_F] * 3 + [_I])
+COST_DOWN = _build.Kernel("sgm_cost_down", [_P] * 4 + [_I] * 5 + [_F] * 3 + [_I] * 2)
 AGGREGATE = _build.Kernel("sgm_aggregate", [_P] * 3 + [_I] * 3 + [_F] * 2 + [_I] * 3)
 WTA = _build.Kernel("sgm_wta", [_P] * 6 + [_I] * 8)
 
@@ -99,13 +99,25 @@ def cost_and_down(
     exc_dtype: torch.dtype,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """PREFILTERED (H, W) images → the clamped cost volume and the down
-    path's excess, both (H, W, nd) in the given storage dtypes."""
+    path's excess, both (H, W, nd) in the given storage dtypes.  uint16
+    cost is for integer images only (:func:`storage_dtypes`): the kernel's
+    cost stage then slides its window sums, exact for integers; float32
+    storage sums in the plain version's order."""
     if lf.shape != rf.shape or lf.dim() != 2:
         raise ValueError(f"cost_and_down wants two (H, W) images; got "
                          f"{tuple(lf.shape)} and {tuple(rf.shape)}")
     if not lf.is_cuda:
         return cost_and_down_plain(lf, rf, cfg, p1, p2, cost_dtype, exc_dtype)
+    return _launch_cost_down(lf, rf, cfg, p1, p2, cost_dtype, exc_dtype)
+
+
+def _launch_cost_down(lf, rf, cfg, p1, p2, cost_dtype, exc_dtype, tile_rows: int = 0):
+    """Launch K4.  ``tile_rows``: rows per warp strip of the integer-storage
+    cost stage (0: automatic; other values are for timing the choice,
+    scripts/torch_match_kernels.py)."""
     mode = _MODES[(cost_dtype, exc_dtype)]
+    if tile_rows < 0:
+        raise ValueError(f"tile_rows={tile_rows} must be >= 0")
     if lf.dtype != torch.float32 or rf.dtype != torch.float32:
         raise TypeError("the SGM cost kernel takes float32 images")
     if not rf.is_cuda or rf.device != lf.device:
@@ -118,7 +130,7 @@ def cost_and_down(
     with torch.cuda.device(lf.device):
         COST_DOWN(_build.ptr(lf), _build.ptr(rf), _build.ptr(cost), _build.ptr(exc),
                   H, W, nd, cfg.min_disparity, cfg.block_radius,
-                  sgm_ops.clamp_value(cfg, p2), float(p1), float(p2), mode)
+                  sgm_ops.clamp_value(cfg, p2), float(p1), float(p2), mode, tile_rows)
     return cost, exc
 
 

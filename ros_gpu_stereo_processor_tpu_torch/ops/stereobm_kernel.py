@@ -28,7 +28,7 @@ from ros_gpu_stereo_processor_tpu_torch.config import StereoBMConfig
 from ros_gpu_stereo_processor_tpu_torch.ops import _build
 from ros_gpu_stereo_processor_tpu_torch.ops import stereobm as bm_ops
 
-KERNEL = _build.Kernel("bm_fused", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7)
+KERNEL = _build.Kernel("bm_fused", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8)
 
 
 def compute_disparity_fused(
@@ -58,9 +58,10 @@ def fused_raw(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The raw ``(disp_raw, best_cost, excl)`` maps of PREFILTERED images,
     before the validity gates.  ``excl`` is 1e9 everywhere unless
-    ``cfg.uniqueness_ratio > 0``.  The kernel refuses (CUDA error 1) a block
-    size and disparity range whose tiles exceed a block's shared memory
-    (e.g. block 255 with 1024 disparities)."""
+    ``cfg.uniqueness_ratio > 0``.  The kernel takes every block size and
+    disparity range of :class:`StereoBMConfig` (it reads the images from
+    device memory and sizes its shared memory to the block); a launch the
+    card refuses raises ``RuntimeError`` (CUDA error 1 for shared memory)."""
     if lf.shape != rf.shape or lf.dim() != 2:
         raise ValueError(f"fused_raw wants two (H, W) images; got "
                          f"{tuple(lf.shape)} and {tuple(rf.shape)}")
@@ -92,9 +93,14 @@ def fused_raw_plain(
     return disp, best_cost, excl
 
 
-def _launch(lf: torch.Tensor, rf: torch.Tensor, cfg: StereoBMConfig):
+def _launch(lf: torch.Tensor, rf: torch.Tensor, cfg: StereoBMConfig, tile_rows: int = 0):
+    """Launch K2.  ``tile_rows``: image rows per block (0: the tallest strip
+    that still gives every SM enough warps; other values are for timing
+    the choice, scripts/torch_match_kernels.py)."""
     if lf.dtype != torch.float32 or rf.dtype != torch.float32:
         raise TypeError("the block-matching kernel takes float32 images")
+    if tile_rows < 0:
+        raise ValueError(f"tile_rows={tile_rows} must be >= 0")
     if not rf.is_cuda or rf.device != lf.device:
         raise ValueError("left and right must be on the same CUDA device")
     lf = lf.contiguous()
@@ -107,7 +113,7 @@ def _launch(lf: torch.Tensor, rf: torch.Tensor, cfg: StereoBMConfig):
         KERNEL(_build.ptr(lf), _build.ptr(rf), _build.ptr(disp_raw),
                _build.ptr(best_cost), _build.ptr(excl), H, W,
                cfg.num_disparities, cfg.min_disparity, cfg.block_radius,
-               int(cfg.refine_disparity), int(cfg.uniqueness_ratio > 0))
+               int(cfg.refine_disparity), int(cfg.uniqueness_ratio > 0), tile_rows)
     return disp_raw, best_cost, excl
 
 

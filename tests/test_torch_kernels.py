@@ -9,8 +9,9 @@ machine without them:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 All comparisons are exact: the kernels repeat the plain versions' float32
-operations step by step (remap, SGM), sum small integers (block matcher) or
-move integer labels (speckle).
+operations step by step (remap, float images in the block matcher and the
+SGM's float32 storage), sum small integers (block matcher, SGM cost in
+integer storage) or move integer labels (speckle).
 """
 
 import numpy as np
@@ -93,14 +94,28 @@ def test_remap_kernel_unaligned_maps(dev):
         _exact(remap_kernel.rectify(imgs, maps), remap.rectify_pair(imgs, m))
 
 
+# the mesh's band launch (120 rows + 2 x 7 halo rows) and the whole image;
+# widths that are not a multiple of the kernel's 32-column segment
+BM_SHAPES = [(40, 112), (67, 301), (50, 97), (134, 752), (480, 752)]
+
+
 @pytest.mark.parametrize("kw", [
     dict(),                                                   # the default
     dict(refine_disparity=True),
     dict(uniqueness_ratio=15),
+    dict(refine_disparity=True, uniqueness_ratio=15),
     dict(num_disparities=32, block_size=9, min_disparity=-4),
     dict(num_disparities=16, block_size=21, xsobel=False),
+    dict(num_disparities=128, block_size=21, refine_disparity=True, uniqueness_ratio=10),
+    dict(num_disparities=256, block_size=21, refine_disparity=True, uniqueness_ratio=10),
+    # the largest block and the largest range whose tiles fit the shared
+    # memory of the staged-tile design this kernel replaced
+    dict(num_disparities=16, block_size=131, refine_disparity=True, uniqueness_ratio=10),
+    dict(num_disparities=1024, block_size=39, refine_disparity=True, uniqueness_ratio=10),
+    # and the largest StereoBMConfig allows, which that design refused
+    dict(num_disparities=1024, block_size=255, refine_disparity=True, uniqueness_ratio=10),
 ])
-@pytest.mark.parametrize("shape", [(40, 112), (67, 301)])
+@pytest.mark.parametrize("shape", BM_SHAPES)
 def test_bm_kernel(dev, kw, shape):
     left, right, _ = synthetic_stereo_pair(*shape, max_disparity=40, seed=4)
     cfg = StereoBMConfig(**kw)
@@ -115,6 +130,46 @@ def test_bm_kernel(dev, kw, shape):
         torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev), cfg)
     _exact(v, vp)
     _exact(d, dp)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(refine_disparity=True, uniqueness_ratio=15,
+                                             num_disparities=96, min_disparity=-3)])
+@pytest.mark.parametrize("shape", [(67, 301), (134, 752)])
+def test_bm_kernel_float_images(dev, kw, shape):
+    """Float images whose prefiltered values are not integers: the kernel
+    sums in the plain version's order there, so it is exact too."""
+    left, right, _ = synthetic_stereo_pair(*shape, max_disparity=40, seed=5)
+    cfg = StereoBMConfig(**kw)
+    lt = torch.from_numpy(left).to(dev).float() * 0.731
+    rt = torch.from_numpy(right).to(dev).float() * 0.731
+    lf, rf = stereobm.prefilter(lt, cfg), stereobm.prefilter(rt, cfg)
+    assert not torch.equal(lf, lf.round())
+    for got, want in zip(stereobm_kernel.fused_raw(lf, rf, cfg),
+                         stereobm_kernel.fused_raw_plain(lf, rf, cfg)):
+        _exact(got, want)
+
+
+@pytest.mark.parametrize("tile_rows", [1, 4, 8, 16, 32, 64])
+def test_bm_kernel_tile_rows(dev, tile_rows):
+    """Every strip height gives the plain version's maps."""
+    left, right, _ = synthetic_stereo_pair(134, 301, max_disparity=40, seed=6)
+    cfg = StereoBMConfig(refine_disparity=True, uniqueness_ratio=15)
+    lf = stereobm.prefilter(torch.from_numpy(left).to(dev), cfg)
+    rf = stereobm.prefilter(torch.from_numpy(right).to(dev), cfg)
+    want = stereobm_kernel.fused_raw_plain(lf, rf, cfg)
+    for got, w in zip(stereobm_kernel._launch(lf, rf, cfg, tile_rows), want):
+        _exact(got, w)
+
+
+def test_bm_kernel_refuses_a_strip_too_tall(dev):
+    """A strip whose winner states exceed a block's shared memory is refused
+    (CUDA error 1) and raises: nothing falls back to the plain version."""
+    lf = torch.zeros((300, 64), device=dev)
+    cfg = StereoBMConfig(refine_disparity=True, uniqueness_ratio=15)
+    launches = stereobm_kernel.KERNEL.launches
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        stereobm_kernel._launch(lf, lf, cfg, 250)
+    assert stereobm_kernel.KERNEL.launches == launches
 
 
 def _speckle_case(shape, seed=7):
@@ -246,6 +301,36 @@ def test_sgm_kernels(dev, shape, nd, p1, p2, integer):
                              sgm_kernel.wta_plain(cost, down, exc_h, c)):
             _exact(got, want)
     assert sgm_kernel.WTA.launches == 2
+
+
+@pytest.mark.parametrize("tile_rows", [1, 4, 16, 32, 200])
+def test_sgm_cost_tile_rows(dev, tile_rows):
+    """Every strip height of the integer-storage cost stage gives the plain
+    volumes, on the mesh's band shape."""
+    left, right, _ = synthetic_stereo_pair(134, 301, max_disparity=40, seed=6)
+    cfg = StereoBMConfig(num_disparities=48, block_size=15, min_disparity=-2)
+    lf = stereobm.prefilter(torch.from_numpy(left).to(dev), cfg)
+    rf = stereobm.prefilter(torch.from_numpy(right).to(dev), cfg)
+    dts = sgm_kernel.storage_dtypes(cfg, 10.0, 120.0, True)
+    got = sgm_kernel._launch_cost_down(lf, rf, cfg, 10.0, 120.0, *dts, tile_rows=tile_rows)
+    for g, w in zip(got, sgm_kernel.cost_and_down_plain(lf, rf, cfg, 10.0, 120.0, *dts)):
+        _exact_volume(g, w)
+
+
+@pytest.mark.parametrize("nd,block", [(16, 15), (256, 15), (48, 5), (32, 7), (64, 9)])
+def test_sgm_cost_block_sizes(dev, nd, block):
+    """The integer-storage cost stage at every kind of block it gets (uint16
+    storage needs 240 + 255 block^2 <= 65535, so block <= 15), a wide range,
+    and windows narrower than a column group of 8 (blocks 5 and 7)."""
+    left, right, _ = synthetic_stereo_pair(67, 301, max_disparity=40, seed=7)
+    cfg = StereoBMConfig(num_disparities=nd, block_size=block, min_disparity=-1)
+    lf = stereobm.prefilter(torch.from_numpy(left).to(dev), cfg)
+    rf = stereobm.prefilter(torch.from_numpy(right).to(dev), cfg)
+    dts = sgm_kernel.storage_dtypes(cfg, 10.0, 120.0, True)
+    assert dts[0] == torch.uint16
+    for g, w in zip(sgm_kernel.cost_and_down(lf, rf, cfg, 10.0, 120.0, *dts),
+                    sgm_kernel.cost_and_down_plain(lf, rf, cfg, 10.0, 120.0, *dts)):
+        _exact_volume(g, w)
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(lr_check=True), dict(min_disparity=2)])
