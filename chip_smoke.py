@@ -21,8 +21,9 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      device time on a mesh band's 134×752 launch), K3 speckle labels
      (exact at 1, 2, one short of the rounds the frame needs, those rounds
      and 64), and the SGM kernels K4 cost + down path (the cost stage's and
-     the down walk's device time apart), K5 path aggregation
-     (the frame's three calls) and K6 winner-take-all at 64 and 128
+     the down walk's device time apart, and the walk's ns per step), K5 path
+     aggregation (the frame's three calls, each also timed apart with its ns
+     per step) and K6 winner-take-all at 64 and 128
      disparities with quantised storage and at 64 with float32 storage (P1
      7.5, P2 93.25), all exact; K7 max-propagation on one band of the
      4-band split (120×752, its field and masks built by the row-sharded
@@ -357,6 +358,13 @@ def profile_frames(torch, timing, pipe, frames, outputs, log_dir, label, top=15)
         log(f"  {ms / n:8.4f} ms/frame  {count / n:6.1f}/frame  {key[:90]}")
 
 
+def k5_calls(down, lr):
+    """The SGM frame's three K5 calls as (name, exc_in, vertical, reverse),
+    given K4's down excess and the left→right call's output."""
+    return (("up+down", down, True, True), ("left-right", None, False, False),
+            ("right-left+left-right", lr, False, True))
+
+
 def check_sgm_kernels(torch, sgm_kernel, stereobm, rect, cfg, p1, p2):
     """K4, K5 (the frame's three calls) and K6 against their plain versions
     on the card, exact; then their times and bounds."""
@@ -414,6 +422,15 @@ def check_sgm_kernels(torch, sgm_kernel, stereobm, rect, cfg, p1, p2):
         "K6": timed(torch, lambda: sgm_kernel.wta(cost, ev, eh, cfg),
                     lambda: sgm_kernel.wta_plain(cost, ev, eh, cfg), 1),
     }
+    # each walk's device time and time per step (one pixel of its lines)
+    times["K4"]["down_walk_step_ns"] = times["K4"]["sgm_walk_device_ms"] * 1e6 / H
+    times["K5"]["calls"] = {}
+    for name, exc_in, vertical, reverse in k5_calls(down, lr):
+        args = (cost, exc_in, p1, p2, vertical, reverse, edt)
+        ms, _ = device_cost(torch, lambda: sgm_kernel.aggregate(*args), KERNEL_REPS,
+                            launches=1)
+        times["K5"]["calls"][name] = {"device_ms": ms,
+                                      "step_ns": ms * 1e6 / (H if vertical else W)}
     out = {}
     for k in ("K4", "K5", "K6"):
         b_ms, by = bound(*work[k])

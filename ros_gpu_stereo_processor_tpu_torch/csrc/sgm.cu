@@ -61,14 +61,26 @@
 //     the row sums left to right (about 4 * block additions per (pixel, d)):
 //     the plain version's order, on which mode 2's exactness rests.  The
 //     down walk is a second launch of the walk kernel inside the same call.
-//   sgm_aggregate: bytes (reads the cost and the incoming excess once, writes
-//     one excess volume) -- but a walk is a chain of dependent steps, and one
-//     warp per line gives only 480 (rows) or 752 (columns) warps, about 4 or 6
-//     per SM, so it is latency-bound first.  Each lane keeps nd / 32
-//     consecutive disparities of the carry in registers; the min over d is
-//     one __reduce_min_sync on order-preserving integer keys, the d +- 1
-//     neighbours across lanes come by one shuffle each, and the loads of the
-//     next 4 pixels of the line are in flight while a step computes.
+//   sgm_aggregate (and the down walk): bytes (each call reads the cost and
+//     the incoming excess once and writes one excess volume) -- but a walk
+//     is a chain of dependent steps, one per pixel of a line, and one warp
+//     per line gives only 480 (rows) or 752 (columns) warps, 3.6 or 5.7 per
+//     SM (1.5 on a 198-row mesh band), too few to hide latency behind other
+//     warps: the time is the line's length times one warp's step.  Loads
+//     issued a few pixels ahead into registers left ~0.45 us a step, about
+//     one device-memory round trip.  So each line stages its pixels through
+//     a ring of shared-memory slots by 16-byte cp.async, D pixels ahead
+//     (walk_depth: about 16 KB in flight per line), with one source pointer
+//     per lane and no branch; a step issues the warp minimum
+//     (__reduce_min_sync, on int32 carries in modes 0/1, order-preserving
+//     keys in mode 2) and the neighbour shuffles first and uses them only
+//     after the wait, the next pixel's reads and the next copy; outputs go
+//     out as whole words.  What bounds the step then is its own ~90
+//     instructions and the latency of the reduction and the shuffles, not
+//     device memory.  On an H100 at 752 x
+//     480 x 128 (mode 0) a step takes ~0.07 us on rows without an incoming
+//     excess, ~0.09 with one, and ~0.14 on columns, where 752 warps share
+//     the 528 SM sub-partitions, two to some.
 //   sgm_wta: bytes (reads three volumes once, writes three maps).  One warp
 //     per pixel reads its nd totals coalesced (lane l holds nd / 32 of them);
 //     the best is the warp minimum and its disparity the smallest index that
@@ -83,6 +95,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <initializer_list>
 #include <type_traits>
 
 #include "sad_window.cuh"
@@ -94,7 +107,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kCostTileX = 32;          // output columns per block of the mode-2 cost kernel
 constexpr int kCostThreads = 256;
 constexpr int kSlideWarps = 4;          // most warp jobs per block of the sliding cost kernel
-constexpr int kWalkWarps = 4;           // path lines per block of the walk kernel
+constexpr int kWalkRingBytes = 16384;   // bytes a line's walk keeps in flight (at most)
 constexpr int kWtaThreads = 128;
 constexpr long long kWtaMaxBlocks = 132 * 32;   // grid-stride beyond this
 constexpr int kSmemDefault = 48 * 1024;
@@ -223,97 +236,266 @@ sgm_cost_slide_kernel(const float* __restrict__ lf, const float* __restrict__ rf
     sad::sweep<true>(lf, rf, scratch, H, W, r, x0, ncols, y0, y1, mind + dd0, out_row);
 }
 
-// One warp per path line (a column when vertical, else a row), walked
-// forward or in reverse.  Lane l holds disparities l * K .. l * K + K - 1.
-// The loads of the next PF pixels are in flight while a step computes.
-template <int K, typename CostT, typename ExcT>
-__global__ void sgm_walk_kernel(const CostT* __restrict__ cost, const ExcT* __restrict__ exc_in,
-                                ExcT* __restrict__ exc_out, int H, int W, int nd, float p1,
-                                float p2, int vertical, int reverse) {
-  constexpr int PF = K <= 8 ? 4 : 1;
-  const int lane = threadIdx.x & 31;
-  const int line = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int n_lines = vertical ? W : H;
-  const int len = vertical ? H : W;
-  if (line >= n_lines) return;          // whole warps: every shuffle sees a full warp
-  const long long pix_step = vertical ? static_cast<long long>(W) * nd : nd;
-  const long long base = vertical ? static_cast<long long>(line) * nd
-                                  : static_cast<long long>(line) * W * nd;
-  const int d0 = lane * K;
-  auto offset = [&](int s) { return base + (reverse ? len - 1 - s : s) * pix_step + d0; };
+// --- the path walk ----------------------------------------------------------
 
-  // the ring holds the loaded values in their storage types: converting
-  // them only where a step uses them keeps the warp from stalling on a load
-  // right after starting it
-  float L[K];
-  CostT cb[PF][K];
-  ExcT eb[PF][K];
+__device__ __forceinline__ int warp_min(int v) { return __reduce_min_sync(kFull, v); }
+__device__ __forceinline__ int vmin(int a, int b) { return min(a, b); }
+__device__ __forceinline__ float vmin(float a, float b) { return fminf(a, b); }
+
+// 16 bytes from device memory into shared memory (a shared-space address),
+// asynchronously, L1 bypassed.
+__device__ __forceinline__ void cp16(unsigned dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+// wait until at most N of this thread's commit groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <int B> struct WordOf;
+template <> struct WordOf<1> { using type = uint8_t; };
+template <> struct WordOf<2> { using type = uint16_t; };
+template <> struct WordOf<4> { using type = uint32_t; };
+template <> struct WordOf<8> { using type = uint2; };
+template <> struct WordOf<16> { using type = uint4; };
+
+// A lane's K consecutive values of T (disparities d0 .. d0 + K - 1), moved
+// as the widest aligned words, at most 16 bytes each.  nd is a multiple of
+// 16 and a word holds a divisor of 16 values, so a word lies wholly inside
+// the range or wholly outside it; words outside are neither read (they load
+// as 0) nor written.
+template <typename T, int K>
+struct Run {
+  static constexpr int kBytes = K * static_cast<int>(sizeof(T));
+  static constexpr int kWordBytes = kBytes < 16 ? kBytes : 16;
+  static constexpr int kPer = kWordBytes / static_cast<int>(sizeof(T));   // values per word
+  using Word = typename WordOf<kWordBytes>::type;
+  union {
+    Word w[K / kPer];
+    T v[K];
+    uint32_t u[kBytes >= 4 ? kBytes / 4 : 1];
+  };
+
+  __device__ __forceinline__ void load(const T* p, int d0, int nd) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) L[k] = d0 + k < nd ? 0.0f : kBig;
+    for (int i = 0; i < K / kPer; ++i)
+      w[i] = d0 + i * kPer < nd ? reinterpret_cast<const Word*>(p)[i] : Word{};
+  }
+  __device__ __forceinline__ void store(T* p, int d0, int nd) const {
 #pragma unroll
-  for (int j = 0; j < PF; ++j) {
+    for (int i = 0; i < K / kPer; ++i)
+      if (d0 + i * kPer < nd) reinterpret_cast<Word*>(p)[i] = w[i];
+  }
+  // value k in type V; 1- and 2-byte integers by one shift or mask of a
+  // 32-bit word each (k is a constant once unrolled)
+  template <typename V>
+  __device__ __forceinline__ V get(int k) const {
+    constexpr int bits = 8 * static_cast<int>(sizeof(T));
+    if constexpr (sizeof(T) < 4 && kBytes >= 4) {
+      const uint32_t word = u[k * bits / 32];
+      const int sh = k * bits % 32;
+      if constexpr (std::is_signed_v<T>)
+        return static_cast<V>(static_cast<int>(word << (32 - bits - sh)) >> (32 - bits));
+      else
+        return static_cast<V>(sh + bits == 32 ? word >> sh : (word >> sh) & ((1u << bits) - 1));
+    } else {
+      return static_cast<V>(v[k]);
+    }
+  }
+};
+
+// The carry's type: int32 for integer storage (every value an integer below
+// 2^24, so the recurrence is exact in either type), float32 otherwise.
+template <typename CostT>
+using WalkT = std::conditional_t<std::is_same_v<CostT, float>, float, int>;
+
+// Pixels a walk stages ahead of the step that reads them: about
+// kWalkRingBytes in flight per line at the widest pixel of K, 2 to 32.
+template <int K, typename CostT, typename ExcT>
+__host__ __device__ constexpr int walk_depth() {
+  constexpr int pix = 32 * K * static_cast<int>(sizeof(CostT) + sizeof(ExcT));
+  return kWalkRingBytes / pix < 2 ? 2 : kWalkRingBytes / pix > 32 ? 32 : kWalkRingBytes / pix;
+}
+
+// Shared-memory slots of a line's ring: the D pixels in flight, the one
+// being read and the one read a step before (a slot is refilled two steps
+// after its pixel was read, so no copy waits on a read).
+template <int K, typename CostT, typename ExcT>
+__host__ __device__ constexpr int walk_slots() { return walk_depth<K, CostT, ExcT>() + 2; }
+
+// One warp per path line (a column when vertical, else a row), walked
+// forward or in reverse; lane l holds disparities l * K .. l * K + K - 1 of
+// the carry.  The line's pixels (nd cost values, then nd exc_in values when
+// given; 16-byte aligned) are copied into a ring of shared-memory slots by
+// 16-byte cp.async, one commit group per pixel, D pixels ahead of the step
+// that reads them: with exc_in, lanes 0-15 copy the cost and lanes 16-31
+// the excess, so each lane keeps one source pointer and moves it by a fixed
+// stride per step.  A step issues the warp minimum and the neighbour
+// shuffles of the carry first, then waits for the group of the pixel after
+// its own (landed long before), reads that pixel's values into registers a
+// step early (K <= 8) and issues the next copy, so the latencies of the
+// reduction and the shuffles hide behind that work; then the recurrence, in
+// int32 on integer storage.  Each lane writes its K outputs as whole words.
+template <int K, typename CostT, typename ExcT>
+__global__ void __launch_bounds__(32)
+sgm_walk_kernel(const CostT* __restrict__ cost, const ExcT* __restrict__ exc_in,
+                ExcT* __restrict__ exc_out, int H, int W, int nd, float p1, float p2,
+                int vertical, int reverse) {
+  using V = WalkT<CostT>;
+  constexpr int D = walk_depth<K, CostT, ExcT>();
+  constexpr int R = walk_slots<K, CostT, ExcT>();
+  constexpr bool kAhead = K <= 8;
+  // 16-byte copies per lane per pixel, at most: nd <= 32 K cost values over
+  // 16 lanes (exc_in's are no wider)
+  constexpr int NQ = K * static_cast<int>(sizeof(CostT)) / 8 > 1
+                         ? K * static_cast<int>(sizeof(CostT)) / 8 : 1;
+  extern __shared__ __align__(16) unsigned char walk_smem[];
+  const int lane = threadIdx.x, line = blockIdx.x;   // one warp, one line, per block
+  const int len = vertical ? H : W;
+  const long long stride = vertical ? static_cast<long long>(W) * nd : nd;   // pixel to pixel
+  const long long pix_step = reverse ? -stride : stride;                      // in walk order
+  // element offset of the line's first pixel in walk order (its disparity 0)
+  const long long first = (vertical ? static_cast<long long>(line) * nd
+                                    : static_cast<long long>(line) * W * nd) +
+                          (reverse ? (len - 1) * stride : 0);
+  const bool has_in = exc_in != nullptr;
+  const int cost_bytes = nd * static_cast<int>(sizeof(CostT));
+  const int pix_bytes = cost_bytes + (has_in ? nd * static_cast<int>(sizeof(ExcT)) : 0);
+  const int ring_bytes = R * pix_bytes;
+  unsigned char* ring = walk_smem;
+  const int d0 = lane * K;
+
+  // this lane's share of a pixel's copies: bytes 16 * (part + lanes * t) of
+  // its buffer (the cost, or with exc_in on lanes 16-31 the excess); a lane
+  // past the buffer's end copies its last 16 bytes again (the same bytes to
+  // the same place as another lane), so no copy needs a branch
+  const bool exc_lane = has_in && lane >= 16;
+  const int lanes = has_in ? 16 : 32, part = exc_lane ? lane - 16 : lane;
+  const int span = exc_lane ? pix_bytes - cost_bytes : cost_bytes;
+  const int esize = exc_lane ? static_cast<int>(sizeof(ExcT)) : static_cast<int>(sizeof(CostT));
+  const char* src = (exc_lane ? reinterpret_cast<const char*>(exc_in)
+                              : reinterpret_cast<const char*>(cost)) + first * esize;
+  const long long src_step = pix_step * esize;
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(ring)) +
+                       (exc_lane ? cost_bytes : 0);
+  int piece[NQ];
+#pragma unroll
+  for (int t = 0; t < NQ; ++t) piece[t] = min(16 * (part + lanes * t), span - 16);
+  int foff = 0;                         // the slot of the next pixel copied
+  auto fetch = [&]() {                  // the next pixel as one commit group
+#pragma unroll
+    for (int t = 0; t < NQ; ++t) cp16(dst + foff + piece[t], src + piece[t]);
+    cp_commit();
+    src += src_step;
+    foff = foff + pix_bytes == ring_bytes ? 0 : foff + pix_bytes;
+  };
+  auto read = [&](int off, Run<CostT, K>& c, Run<ExcT, K>& ei) {
+    c.load(reinterpret_cast<const CostT*>(ring + off) + d0, d0, nd);
+    if (has_in) ei.load(reinterpret_cast<const ExcT*>(ring + off + cost_bytes) + d0, d0, nd);
+  };
+
+  const V vp1 = static_cast<V>(p1), vp2 = static_cast<V>(p2), big = static_cast<V>(kBig);
+  // the carry, and the cost of disparities past nd as +1e9: such an L stays
+  // at 1e9 + [0, P2], above every real one, so it never wins a minimum
+  V L[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) L[k] = d0 + k < nd ? V(0) : big;
+  V lm = d0 < nd ? V(0) : big;          // the lane's minimum of the carry
+  ExcT* out_ptr = exc_out + first + d0;
+  // D + 1 groups ahead (empty past the line's end, so the counts hold)
+  for (int s = 0; s <= D; ++s) {
+    if (s < len) {
+      fetch();
+    } else {
+      cp_commit();
+    }
+  }
+  Run<CostT, K> c;
+  Run<ExcT, K> ei;
+  if constexpr (kAhead) {
+    cp_wait<D>();                       // step 0's pixel
+    __syncwarp();
+    read(0, c, ei);
+  }
+  int roff = 0;                         // this step's slot
+
+  // One step.  The warp minimum and the neighbours' shuffles go first and
+  // their results are used after the wait, the reads and the copies, which
+  // hide their latency; `copying`: the step copies the pixel D + 1 ahead
+  // into the slot of the step before, read a step ago; `full`: nd = 32 K,
+  // no disparity past nd to keep at 1e9.
+  auto step = [&](auto copying, auto full) {
+    const V m = warp_min(lm);
+    V up_edge = __shfl_down_sync(kFull, L[0], 1);     // d = d0 + K, from lane + 1
+    V dn_edge = __shfl_up_sync(kFull, L[K - 1], 1);   // d = d0 - 1, from lane - 1
+    // groups in flight: steps s + 1 .. s + D; this leaves s + 2 .. s + D
+    cp_wait<D - 1>();
+    __syncwarp();                       // every lane's copies visible to every lane
+    const int noff = roff + pix_bytes == ring_bytes ? 0 : roff + pix_bytes;
+    Run<CostT, K> cn;
+    Run<ExcT, K> en;
+    if constexpr (kAhead)
+      read(noff, cn, en);               // past the line's end a slot never used
+    else
+      read(roff, c, ei);
+    if constexpr (decltype(copying)::value)
+      fetch();
+    else
+      cp_commit();                      // an empty group keeps the count
+    if (lane == 31) up_edge = big;
+    if (lane == 0) dn_edge = big;
+
+    // best = min(L, up + P1, dn + P1, m + P2): the part without m first.
+    // float32 keeps the plain version's rounding steps (the adds; a min is
+    // exact in any order); on integers min(up, dn) + P1 is the same value
+    V Ln[K];
+    Run<ExcT, K> out;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      cb[j][k] = CostT(0);
-      eb[j][k] = ExcT(0);
-      if (j < len && d0 + k < nd) {
-        const long long o = offset(j);
-        cb[j][k] = cost[o + k];
-        if (exc_in != nullptr) eb[j][k] = exc_in[o + k];
+      const V up = k + 1 < K ? L[k + 1] : up_edge;
+      const V dn = k > 0 ? L[k - 1] : dn_edge;
+      const V ck = decltype(full)::value || d0 + k < nd ? c.template get<V>(k) : big;
+      V e;
+      if constexpr (std::is_same_v<V, int>) {
+        const V best = min(min(L[k], min(up, dn) + vp1), m + vp2);
+        e = best - m;
+        Ln[k] = ck + best - m;
+      } else {
+        const V best = fminf(fminf(L[k], fminf(up + vp1, dn + vp1)), m + vp2);
+        e = best - m;
+        Ln[k] = ck + e;
       }
+      out.v[k] = static_cast<ExcT>(has_in ? e + ei.template get<V>(k) : e);
     }
-  }
-  for (int s0 = 0; s0 < len; s0 += PF) {
+    lm = Ln[0];
 #pragma unroll
-    for (int j = 0; j < PF; ++j) {
-      const int s = s0 + j;
-      if (s >= len) break;              // uniform across the warp
-      const long long o = offset(s);
-      CostT c[K];
-      ExcT ei[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        c[k] = cb[j][k];
-        ei[k] = eb[j][k];
-      }
-      if (s + PF < len) {               // refill this slot with pixel s + PF
-        const long long on = offset(s + PF);
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          if (d0 + k < nd) {
-            cb[j][k] = cost[on + k];
-            if (exc_in != nullptr) eb[j][k] = exc_in[on + k];
-          }
-        }
-      }
-
-      float m = L[0];
-#pragma unroll
-      for (int k = 1; k < K; ++k) m = fminf(m, L[k]);
-      m = warp_min(m);
-      float up_edge = __shfl_down_sync(kFull, L[0], 1);     // d = d0 + K, from lane + 1
-      float dn_edge = __shfl_up_sync(kFull, L[K - 1], 1);   // d = d0 - 1, from lane - 1
-      if (lane == 31) up_edge = kBig;
-      if (lane == 0) dn_edge = kBig;
-
-      float Ln[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const float up = k + 1 < K ? L[k + 1] : up_edge;
-        const float dn = k > 0 ? L[k - 1] : dn_edge;
-        const float best = fminf(fminf(L[k], m + p2), fminf(up + p1, dn + p1));
-        const float e = best - m;
-        if (d0 + k < nd) {
-          Ln[k] = static_cast<float>(c[k]) + e;
-          exc_out[o + k] = st<ExcT>(exc_in != nullptr ? e + static_cast<float>(ei[k]) : e);
-        } else {
-          Ln[k] = kBig;
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < K; ++k) L[k] = Ln[k];
+    for (int k = 0; k < K; ++k) {
+      L[k] = Ln[k];
+      lm = vmin(lm, Ln[k]);
     }
-  }
+    out.store(out_ptr, d0, nd);
+    out_ptr += pix_step;
+    if constexpr (kAhead) {
+      c = cn;
+      ei = en;
+    }
+    roff = noff;
+  };
+  // the steps that copy, then those with nothing left to copy; unrolled by 2
+  // so that no register is copied from one step's name to the next's
+  auto walk = [&](auto full) {
+    int s = 0;
+#pragma unroll 2
+    for (; s < len - D - 1; ++s) step(std::true_type{}, full);
+#pragma unroll 2
+    for (; s < len; ++s) step(std::false_type{}, full);
+  };
+  if (nd == 32 * K)
+    walk(std::true_type{});
+  else
+    walk(std::false_type{});
 }
 
 template <typename CostT, typename ExcT>
@@ -388,32 +570,51 @@ __global__ void sgm_wta_kernel(const CostT* __restrict__ cost, const ExcT* __res
   }
 }
 
+// One walk at K disparities per lane: the ring's shared memory per line is
+// walk_slots pixels of nd cost values (and nd exc_in values when given).
+template <int K, typename CostT, typename ExcT>
+cudaError_t launch_walk_k(const void* cost, const void* exc_in, void* exc_out, int H, int W,
+                          int nd, float p1, float p2, int vertical, int reverse,
+                          cudaStream_t s) {
+  const long long pix = static_cast<long long>(nd) *
+                        (sizeof(CostT) + (exc_in != nullptr ? sizeof(ExcT) : 0));
+  const long long smem = walk_slots<K, CostT, ExcT>() * pix;
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  const auto kernel = sgm_walk_kernel<K, CostT, ExcT>;
+  // per device, so on every launch
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<vertical ? W : H, 32, static_cast<size_t>(smem), s>>>(
+      static_cast<const CostT*>(cost), static_cast<const ExcT*>(exc_in),
+      static_cast<ExcT*>(exc_out), H, W, nd, p1, p2, vertical, reverse);
+  return cudaGetLastError();
+}
+
+// nd must be a multiple of 16 (every pixel's span 16-byte aligned in every
+// storage mode) and at most 1024; the volumes 16-byte aligned.
 template <typename CostT, typename ExcT>
 cudaError_t launch_walk(const void* cost, const void* exc_in, void* exc_out, int H, int W,
                         int nd, float p1, float p2, int vertical, int reverse,
                         cudaStream_t s) {
-  const int lines = vertical ? W : H;
-  if (lines == 0 || nd == 0) return cudaSuccess;
-  const dim3 grid((lines + kWalkWarps - 1) / kWalkWarps), block(32 * kWalkWarps);
-  const CostT* c = static_cast<const CostT*>(cost);
-  const ExcT* ei = static_cast<const ExcT*>(exc_in);
-  ExcT* eo = static_cast<ExcT*>(exc_out);
+  if (H == 0 || W == 0 || nd == 0) return cudaSuccess;
+  if (nd % 16 != 0) return cudaErrorInvalidValue;
+  for (const void* p : {cost, exc_in, static_cast<const void*>(exc_out)})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;
   const int per_lane = (nd + 31) / 32;
   if (per_lane <= 1)
-    sgm_walk_kernel<1, CostT, ExcT><<<grid, block, 0, s>>>(c, ei, eo, H, W, nd, p1, p2, vertical, reverse);
-  else if (per_lane <= 2)
-    sgm_walk_kernel<2, CostT, ExcT><<<grid, block, 0, s>>>(c, ei, eo, H, W, nd, p1, p2, vertical, reverse);
-  else if (per_lane <= 4)
-    sgm_walk_kernel<4, CostT, ExcT><<<grid, block, 0, s>>>(c, ei, eo, H, W, nd, p1, p2, vertical, reverse);
-  else if (per_lane <= 8)
-    sgm_walk_kernel<8, CostT, ExcT><<<grid, block, 0, s>>>(c, ei, eo, H, W, nd, p1, p2, vertical, reverse);
-  else if (per_lane <= 16)
-    sgm_walk_kernel<16, CostT, ExcT><<<grid, block, 0, s>>>(c, ei, eo, H, W, nd, p1, p2, vertical, reverse);
-  else if (per_lane <= 32)
-    sgm_walk_kernel<32, CostT, ExcT><<<grid, block, 0, s>>>(c, ei, eo, H, W, nd, p1, p2, vertical, reverse);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+    return launch_walk_k<1, CostT, ExcT>(cost, exc_in, exc_out, H, W, nd, p1, p2, vertical, reverse, s);
+  if (per_lane <= 2)
+    return launch_walk_k<2, CostT, ExcT>(cost, exc_in, exc_out, H, W, nd, p1, p2, vertical, reverse, s);
+  if (per_lane <= 4)
+    return launch_walk_k<4, CostT, ExcT>(cost, exc_in, exc_out, H, W, nd, p1, p2, vertical, reverse, s);
+  if (per_lane <= 8)
+    return launch_walk_k<8, CostT, ExcT>(cost, exc_in, exc_out, H, W, nd, p1, p2, vertical, reverse, s);
+  if (per_lane <= 16)
+    return launch_walk_k<16, CostT, ExcT>(cost, exc_in, exc_out, H, W, nd, p1, p2, vertical, reverse, s);
+  if (per_lane <= 32)
+    return launch_walk_k<32, CostT, ExcT>(cost, exc_in, exc_out, H, W, nd, p1, p2, vertical, reverse, s);
+  return cudaErrorInvalidValue;
 }
 
 // The cost stage of modes 0/1.  tile_rows: rows per warp strip (0:

@@ -171,16 +171,25 @@ def aggregate(
     if not cost.is_cuda:
         return aggregate_plain(cost, exc_in, p1, p2, vertical, reverse, exc_dtype)
     mode = _MODES[(cost.dtype, exc_dtype)]
-    cost = cost.contiguous()
     H, W, nd = cost.shape
+    if nd % 16:
+        raise ValueError(f"the walk kernel takes a multiple of 16 disparities, not {nd}")
+    cost = walk_operand(cost)
     out = torch.empty((H, W, nd), dtype=exc_dtype, device=cost.device)
     if exc_in is not None:
-        exc_in = exc_in.contiguous()
+        exc_in = walk_operand(exc_in)
     exc_ptr = _P(None) if exc_in is None else _build.ptr(exc_in)
     with torch.cuda.device(cost.device):
         AGGREGATE(_build.ptr(cost), exc_ptr, _build.ptr(out), H, W, nd,
                   float(p1), float(p2), int(vertical), int(reverse), mode)
     return out
+
+
+def walk_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting on a 16-byte boundary, as the walk
+    kernel's 16-byte copies need: a view that starts off one is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def aggregate_plain(cost, exc_in, p1, p2, vertical, reverse, exc_dtype):

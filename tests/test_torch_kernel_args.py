@@ -37,6 +37,21 @@ def test_cost_down_launch_rejects_negative_tile_rows():
     assert torch.equal(cost.float(), want[0].float()) and torch.equal(exc.float(), want[1].float())
 
 
+def test_walk_operand_aligns_views():
+    """The walk kernel copies 16 bytes at a time: its wrapper passes an
+    aligned contiguous tensor as it is and copies a view that starts off a
+    16-byte boundary (or is not contiguous) to one that does not."""
+    vol = torch.arange(2 * 3 * 48, dtype=torch.int16).reshape(2, 3, 48)
+    assert vol.data_ptr() % 16 == 0 and sgm_kernel.walk_operand(vol) is vol
+    flat = torch.zeros(vol.numel() + 1, dtype=torch.int16)
+    flat[1:] = vol.reshape(-1)
+    shifted = flat[1:].view(vol.shape)
+    for t in (shifted, vol.transpose(0, 1)):
+        got = sgm_kernel.walk_operand(t)
+        assert got.is_contiguous() and got.data_ptr() % 16 == 0
+        assert torch.equal(got, t)
+
+
 def test_library_path_tracks_headers(tmp_path, monkeypatch):
     """An edited header (csrc/*.cuh) gives a new library name, so a library
     built from the old header is never loaded."""

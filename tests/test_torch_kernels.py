@@ -303,6 +303,100 @@ def test_sgm_kernels(dev, shape, nd, p1, p2, integer):
     assert sgm_kernel.WTA.launches == 2
 
 
+# storage mode → (cost dtype, excess dtype, P1, P2); the clamp value is
+# block 15's (2·P2 + 255·15²), the largest cost a uint16 volume holds
+WALK_MODES = {
+    "u16_u8": (torch.uint16, torch.uint8, 10.0, 120.0),
+    "u16_i16": (torch.uint16, torch.int16, 20.0, 600.0),
+    "f32": (torch.float32, torch.float32, 7.5, 93.25),
+}
+# lines shorter than the ring and than one warp's pixels, one-pixel lines
+# both ways, a width no block of columns divides, the mesh SGM band (120 rows
+# and 2 × 39 halo rows) and the whole image
+WALK_SHAPES = [(1, 301), (2, 17), (17, 2), (37, 301), (198, 752), (480, 752)]
+
+
+def _walk_volumes(shape, nd, mode, seed):
+    """A cost volume and an incoming excess that reach their storage limits:
+    cost mostly in [0, 4·P2) (so the P1 and P2 branches both win), a tenth at
+    the clamp value and a tenth anywhere in [0, clamp]; excess in [0, P2].
+    Float storage gets fractional values."""
+    cost_dt, exc_dt, p1, p2 = WALK_MODES[mode]
+    clampv = 2 * p2 + 255 * 15 ** 2
+    rng = np.random.default_rng(seed)
+    size = (*shape, nd)
+    if cost_dt == torch.float32:
+        cost = (rng.random(size, np.float32) * np.float32(4 * p2))
+        exc = rng.random(size, np.float32) * np.float32(p2)
+        wide = rng.random(size, np.float32) * np.float32(clampv)
+    else:
+        cost = rng.integers(0, 4 * int(p2), size, np.int32)
+        exc = rng.integers(0, int(p2) + 1, size, np.int32)
+        wide = rng.integers(0, int(clampv) + 1, size, np.int32)
+    pick = rng.random(size, np.float32)
+    cost = np.where(pick < 0.1, clampv, np.where(pick < 0.2, wide, cost))
+    return (torch.from_numpy(cost.astype(np.float32)).to(cost_dt),
+            torch.from_numpy(exc.astype(np.float32)).to(exc_dt), p1, p2, exc_dt)
+
+
+# every width of a lane's share (nd / 32 rounded up to 1, 2, 4, 8, 16, 32
+# disparities), with and without disparities past nd (48)
+@pytest.mark.parametrize("mode", list(WALK_MODES))
+@pytest.mark.parametrize("nd", [16, 48, 128, 256, 512, 1024])
+@pytest.mark.parametrize("shape", WALK_SHAPES)
+def test_walk_kernel(dev, shape, nd, mode):
+    """K5 in all eight (vertical, reverse, exc_in) combinations against its
+    plain version, exact, one launch per call.  The full image at 512 and
+    1024 disparities (0.7 and 1.5 GB a float32 volume) is left to 198 rows."""
+    if nd >= 512 and shape == (480, 752):
+        shape = (198, 752)
+    cost, exc, p1, p2, exc_dt = _walk_volumes(shape, nd, mode, seed=nd + shape[0])
+    cost, exc = cost.to(dev), exc.to(dev)
+    _build.reset_launch_counts()
+    for vertical in (True, False):
+        for reverse in (False, True):
+            for exc_in in (None, exc):
+                args = (cost, exc_in, p1, p2, vertical, reverse, exc_dt)
+                _exact_volume(sgm_kernel.aggregate(*args), sgm_kernel.aggregate_plain(*args))
+    assert sgm_kernel.AGGREGATE.launches == 8
+
+
+def test_walk_kernel_unaligned_view(dev):
+    """Volumes that start off a 16-byte boundary are copied to an aligned
+    one first (the kernel copies 16 bytes at a time); nd that is not a
+    multiple of 16 raises before any launch."""
+    cost, exc, p1, p2, exc_dt = _walk_volumes((9, 40), 32, "u16_u8", seed=3)
+    cost, exc = cost.to(dev), exc.to(dev)
+    flat = torch.zeros(cost.numel() + 1, dtype=cost.dtype, device=dev)
+    flat[1:] = cost.reshape(-1)
+    shifted = flat[1:].view(cost.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    for vertical in (True, False):
+        args = (exc, p1, p2, vertical, True, exc_dt)
+        _exact_volume(sgm_kernel.aggregate(shifted, *args), sgm_kernel.aggregate_plain(cost, *args))
+    launches = sgm_kernel.AGGREGATE.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        sgm_kernel.aggregate(cost[..., :24], None, p1, p2, True, False, exc_dt)
+    assert sgm_kernel.AGGREGATE.launches == launches
+
+
+@pytest.mark.parametrize("nd,p1,p2,integer", [SGM_MODES[2], SGM_MODES[3], SGM_MODES[4]],
+                         ids=["u16_u8", "u16_i16", "f32"])
+def test_sgm_down_walk_band(dev, nd, p1, p2, integer):
+    """K4 (cost stage and down walk) on the mesh SGM band's launch shape,
+    198×752, in each storage mode: exact."""
+    left, right, _ = synthetic_stereo_pair(198, 752, max_disparity=44, seed=8)
+    if not integer:
+        left, right = left.astype(np.float32) + 0.25, right.astype(np.float32) + 0.25
+    cfg = StereoBMConfig(num_disparities=nd, block_size=15)
+    lf = stereobm.prefilter(torch.from_numpy(left).to(dev), cfg)
+    rf = stereobm.prefilter(torch.from_numpy(right).to(dev), cfg)
+    dts = sgm_kernel.storage_dtypes(cfg, p1, p2, integer)
+    for g, w in zip(sgm_kernel.cost_and_down(lf, rf, cfg, p1, p2, *dts),
+                    sgm_kernel.cost_and_down_plain(lf, rf, cfg, p1, p2, *dts)):
+        _exact_volume(g, w)
+
+
 @pytest.mark.parametrize("tile_rows", [1, 4, 16, 32, 200])
 def test_sgm_cost_tile_rows(dev, tile_rows):
     """Every strip height of the integer-storage cost stage gives the plain

@@ -118,6 +118,46 @@ def test_sgm_fused_plain_other_shapes(shape, nd):
     _assert_equal(got, want)
 
 
+# storage mode → (cost dtype, excess dtype, P1, P2), as the walk kernel's
+# card tests take them
+WALK_MODES = {
+    "u16_u8": (torch.uint16, torch.uint8, 10.0, 120.0),
+    "u16_i16": (torch.uint16, torch.int16, 20.0, 600.0),
+    "f32": (torch.float32, torch.float32, 7.5, 93.25),
+}
+
+
+@pytest.mark.parametrize("mode", list(WALK_MODES))
+@pytest.mark.parametrize("shape", [(1, 301), (2, 17), (17, 2)])
+def test_walk_plain_matches_oracle_on_short_lines(shape, mode):
+    """K5's plain version (what the walk kernel is held to on the card) at
+    the card tests' shortest lines, against the JAX oracle's scan along one
+    axis: the excess L − C, plus an incoming excess, exact.  Costs reach the
+    clamp value; float storage takes quarter values, so L − C is exact."""
+    cost_dt, exc_dt, p1, p2 = WALK_MODES[mode]
+    clampv = 2 * p2 + 255 * 15 ** 2
+    rng = np.random.default_rng(shape[0] * 1000 + shape[1])
+    for nd in (16, 48):
+        size = (*shape, nd)
+        cost = rng.integers(0, 4 * int(p2), size).astype(np.float32)
+        cost[rng.random(size) < 0.1] = clampv
+        exc = rng.integers(0, int(p2) + 1, size).astype(np.float32)
+        if cost_dt == torch.float32:
+            cost, exc = cost / 4, exc / 4
+        for vertical in (True, False):
+            for reverse in (False, True):
+                L = np.asarray(jsgm._aggregate_axis(jnp.asarray(cost), 0 if vertical else 1,
+                                                    reverse, p1, p2))
+                for exc_in in (None, exc):
+                    want = L - cost if exc_in is None else (L - cost) + exc_in
+                    got = sgm_kernel.aggregate(
+                        torch.from_numpy(cost).to(cost_dt),
+                        None if exc_in is None else torch.from_numpy(exc_in).to(exc_dt),
+                        p1, p2, vertical, reverse, exc_dt)
+                    assert got.dtype == exc_dt
+                    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
 def test_storage_dtypes():
     cfg = tconfig.StereoBMConfig()
     u16 = torch.uint16
