@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's dense stereo pipeline once on a CUDA card.
+"""Drive the PyTorch port's stereo pipeline and SLAM engine once on a CUDA card.
 
     python3 chip_smoke.py
 
@@ -34,13 +34,13 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      others 1;
   4. runs ``StereoPipeline`` on the card at 752×480, ``Outputs.all()``, over
      synthetic frames, for each main path:
-       * block matching (default config, 64 disparities): 41 frames, each
-         launching K1 twice, K2 and K3 once; 6 compared with the CPU run;
-       * SGM (4 paths, 128 disparities, block 15, texture 10): 21 frames,
+       * block matching (default config, 64 disparities): 21 frames, each
+         launching K1 twice, K2 and K3 once; 3 compared with the CPU run;
+       * SGM (4 paths, 128 disparities, block 15, texture 10): 11 frames,
          each launching K1 twice, K3, K4 and K6 once and K5 three times, and
          not K2; 2 compared with the CPU run;
        * the row-band mesh, ``make_mesh(4, devices=["cuda:0"] * 4)``, default
-         BM config: 11 frames, each launching K1 and K2 once per band per
+         BM config: 6 frames, each launching K1 and K2 once per band per
          call (8 and 4), K7 once per band (4), the band label rounds at
          least once and K3 never; 2 compared with the CPU run of the same
          4-band mesh;
@@ -51,7 +51,21 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      against the CPU mesh run.  The comparison: disparity, validity,
      ``disparity_vis`` and the images exact, ``pointcloud_xyz`` with equal
      NaN positions and rtol 1e-5, ``pointcloud_rgb`` bitwise;
-  5. prints the seconds of each phase, one JSON line per path with its
+  5. runs the SLAM engine, ``StereoSlam`` on the card with the default
+     ``PipelineConfig`` (BM) and ``SlamConfig``, over the port's planar
+     synthetic sequence (utils/synth.py, rendered with numpy while the
+     kernels build: 752×480, fx 441, baseline 0.11, Z0 3 m, 60 frames, seed
+     0): ``run_stream(depth=2)``, each frame launching K1, K2 and K3 once,
+     then ``optimize_global()``; fails unless every frame after the first
+     is tracked and the ATE after ``optimize_global`` is under 0.1 m.  The
+     card's first 8 frames against the port's CPU run of them (keypoints
+     exact, descriptors exact where the steering bins agree, match counts,
+     tracked flags and keyframe decisions exact, poses within 1e-5), device
+     launches and busy share per SLAM frame from ``torch.profiler`` over 5
+     frames, and a 20-frame ``async_mapping=True`` run against the
+     synchronous one (the same frame count, keyframes within 1, final pose
+     within 0.05 m);
+  6. prints the seconds of each phase, one JSON line per path with its
      frame times, one JSON line with each kernel's launches, error, times
      (events and device) and bound, and as its last line
      ``{"ok": true, "device": {...}}``.
@@ -77,12 +91,19 @@ import time
 
 import numpy as np
 
-FRAMES = 41         # BM path: frame 0 is the warm-up; 40 timed frames give a p75
-COMPARED = 6        # BM frames also run on the CPU and compared
-SGM_FRAMES = 21     # SGM path: 1 warm-up + 20 timed
+FRAMES = 21         # BM path: frame 0 is the warm-up; 20 timed frames give a p75
+COMPARED = 3        # BM frames also run on the CPU and compared
+SGM_FRAMES = 11     # SGM path: 1 warm-up + 10 timed
 SGM_COMPARED = 2
-MESH_FRAMES = 11    # mesh path: 1 warm-up + 10 timed
+MESH_FRAMES = 6     # mesh path: 1 warm-up + 5 timed
 MESH_COMPARED = 2
+SLAM_FRAMES = 60    # SLAM path: the planar sequence's frames
+SLAM_COMPARED = 8   # its first frames, also run on the CPU and compared
+SLAM_ASYNC = 20     # frames of the async-mapping run
+SLAM_PROFILED = 5   # frames in a profiler window
+SLAM_POSE_ATOL = 1e-5
+ATE_GATE_M = 0.1    # tests/test_ate.py's gate
+SLAM_FLAGS = ("is_keyframe", "tracked", "lost", "relocalized", "n_matches")
 BANDS = 4
 BAND_ROWS = 134     # a mesh band's launch: 480 / BANDS rows and 2 x 7 halo rows
 KERNEL_REPS = 20
@@ -481,6 +502,219 @@ def check_k7(torch, speckle, speckle_kernel, frontend, mesh, disp, valid, sp_cfg
     return out
 
 
+def planar_model(calib, fx=441.0, baseline=0.11):
+    """The camera of the port's planar synthetic sequence (utils/synth.py):
+    pinhole, no distortion, the principal point at the image centre."""
+    K = np.array([[fx, 0, W / 2], [0, fx, H / 2], [0, 0, 1.0]])
+    P = np.hstack([K, np.zeros((3, 1))])
+    Pr = P.copy()
+    Pr[0, 3] = -fx * baseline
+
+    def mk(PP, name):
+        return calib.CameraCalib(W, H, K, np.zeros(5), np.eye(3), PP, name)
+
+    return calib.StereoCameraModel.from_calibs(mk(P, "left"), mk(Pr, "right"))
+
+
+def start_rendering(synth):
+    """Render the SLAM sequence on a thread (numpy; it overlaps the kernel
+    build).  Returns a function that waits for it and returns ([(left,
+    right, stamp)], ground truth)."""
+    import threading
+
+    out = {}
+
+    def run():
+        try:
+            lefts, rights, gt = synth.render_planar(SLAM_FRAMES, W, H, 441.0, 0.11, 3.0,
+                                                    10.0, 0)
+            out["frames"] = (list(zip(lefts, rights, gt.stamps)), gt)
+        except BaseException as e:       # re-raised by the waiter
+            out["error"] = e
+
+    th = threading.Thread(target=run, name="render-slam-frames")
+    th.start()
+
+    def wait():
+        th.join()
+        if "error" in out:
+            raise out["error"]
+        return out["frames"]
+
+    return wait
+
+
+def slam_steps(torch, slam, frames):
+    """``slam.step`` over ``frames``; per frame its info and its keypoints
+    on the host."""
+    recs = []
+    for left, right, stamp in frames:
+        info = slam.step(left, right, stamp)
+        kp = slam.vo.state.prev.kp
+        recs.append({"info": info, **{f: getattr(kp, f).cpu() for f in kp._fields}})
+    return recs
+
+
+def same_slam_frame(torch, features, got, want, label, keypoints=True):
+    """One SLAM frame of the card against the CPU run's: flags and match
+    counts exact, poses within SLAM_POSE_ATOL; keypoints exact, descriptors
+    exact where the steering bins agree (≤ 1 % of keypoints may differ)."""
+    g, w = got["info"], want["info"]
+    for f in SLAM_FLAGS:
+        if g[f] != w[f]:
+            raise AssertionError(f"{label}: {f} {g[f]} on the card, {w[f]} on the CPU")
+    for f in ("R_wc", "t_wc"):
+        d = float(np.abs(g[f] - w[f]).max())
+        if d > SLAM_POSE_ATOL:
+            raise AssertionError(f"{label}: {f} differs by {d} (> {SLAM_POSE_ATOL})")
+    if not keypoints:
+        return
+    for f in ("xy", "score", "valid"):
+        if not torch.equal(got[f], want[f]):
+            raise AssertionError(f"{label}: keypoint {f} differ")
+    same = features._steering_bins(got["angle"]) == features._steering_bins(want["angle"])
+    if float((~same).float().mean()) > 0.01 or not torch.equal(got["desc"][same],
+                                                               want["desc"][same]):
+        raise AssertionError(f"{label}: descriptors differ")
+
+
+def slam_profile(torch, timing, port, model, frames, dev, log_dir):
+    """Device launches and busy ms per SLAM frame: ``torch.profiler`` over
+    SLAM_PROFILED synchronous steps after 10 warm frames (a later window if
+    the profiler recorded no device time).  Returns (launches, busy ms, wall
+    ms) per frame."""
+    from torch.profiler import ProfilerActivity, profile
+
+    slam = port.StereoSlam(model, device=dev)
+    for left, right, stamp in frames[:10]:
+        slam.step(left, right, stamp)
+    for start in (10, 10 + SLAM_PROFILED, 10 + 2 * SLAM_PROFILED):
+        window = frames[start:start + SLAM_PROFILED]
+        torch.cuda.synchronize()
+        ctx = (timing.trace(log_dir) if log_dir else
+               profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+        with ctx as prof:
+            t0 = time.perf_counter()
+            for left, right, stamp in window:
+                slam.step(left, right, stamp)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+        if rows:
+            break
+    else:
+        raise AssertionError("the profiler recorded no device time in three SLAM windows")
+    slam.pipeline.senders.shutdown()
+    n = len(window)
+    busy = sum(r[2] for r in rows)
+    log(f"profile slam over {n} frames: wall {wall_ms / n:.3f} ms/frame, device busy "
+        f"{busy / n:.3f} ms/frame ({100 * busy / wall_ms:.1f} %), "
+        f"{sum(r[1] for r in rows) / n:.0f} kernels and copies/frame")
+    for key, count, ms in sorted(rows, key=lambda r: -r[2])[:15 if log_dir else 8]:
+        log(f"  {ms / n:8.4f} ms/frame  {count / n:6.1f}/frame  {key[:90]}")
+    return sum(r[1] for r in rows) / n, busy / n, wall_ms / n
+
+
+def run_slam(torch, port, _build, features, timing, evaluate, calib, frames, gt, dev,
+             kernels, profile_dir):
+    """The SLAM path: the main run (every count set to 0 just before it and
+    read just after), the ATE gate, the card's first frames against the CPU
+    run, the profiler window and the async-mapping run.  Returns (its JSON
+    line, launches of each kernel in the main run)."""
+    model = planar_model(calib)
+    slams = []
+
+    def engine(**kw):
+        slams.append(port.StereoSlam(model, **kw))
+        return slams[-1]
+
+    slam = engine(device=dev)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    infos, per_frame_ms = [], []
+    t0 = last = time.perf_counter()
+    for info in slam.run_stream(iter(frames), depth=2):
+        now = time.perf_counter()
+        per_frame_ms.append((now - last) * 1e3)
+        last = now
+        infos.append(info)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: kern.launches for k, kern in kernels.items()}
+    log(f"SLAM launches over {len(frames)} frames: {launches}")
+    for k, n in launches.items():
+        want = len(frames) if k in ("K1", "K2", "K3") else 0
+        if n != want:
+            raise AssertionError(f"SLAM: {k} launched {n} times, not {want}")
+    if len(infos) != len(frames) or not all(i["tracked"] for i in infos[1:]):
+        raise AssertionError(f"SLAM: frames not tracked: "
+                             f"{[k for k, i in enumerate(infos) if not i['tracked']][1:]}")
+    stages = slam.timer.as_dict()
+    ate_before = evaluate.ate_rmse(slam.trajectory(), gt)
+    t1 = time.perf_counter()
+    closures = slam.optimize_global()
+    og_ms = (time.perf_counter() - t1) * 1e3
+    ate_after = evaluate.ate_rmse(slam.trajectory(), gt)
+    log(f"SLAM: {len(slam.store)} keyframes, {closures} loop closures, ATE {ate_before:.5f} m "
+        f"before optimize_global and {ate_after:.5f} m after")
+    if not np.isfinite(ate_after) or ate_after >= ATE_GATE_M:
+        raise AssertionError(f"SLAM: ATE {ate_after} m after optimize_global (gate {ATE_GATE_M})")
+
+    # the card's first frames against the port's CPU run of them
+    card = slam_steps(torch, engine(device=dev), frames[:SLAM_COMPARED])
+    cpu = slam_steps(torch, engine(device="cpu"), frames[:SLAM_COMPARED])
+    for i, (g, w) in enumerate(zip(card, cpu)):
+        same_slam_frame(torch, features, g, w, f"SLAM frame {i}")
+        same_slam_frame(torch, features, {"info": infos[i]}, w, f"SLAM stream frame {i}",
+                        keypoints=False)
+    log(f"SLAM: the card's first {SLAM_COMPARED} frames match the CPU run (keypoints, "
+        f"match counts {[r['info']['n_matches'] for r in cpu]}, keyframes, poses)")
+
+    launches_per_frame, busy_ms, prof_wall_ms = slam_profile(
+        torch, timing, port, model, frames, dev,
+        os.path.join(profile_dir, "slam") if profile_dir else None)
+
+    # the tracking/mapping split against synchronous stepping
+    sync = engine(device=dev)
+    for left, right, stamp in frames[:SLAM_ASYNC]:
+        sync.step(left, right, stamp)
+    asyn = engine(device=dev)
+    n_async = len(list(asyn.run_stream(iter(frames[:SLAM_ASYNC]), async_mapping=True)))
+    d_async = float(np.linalg.norm(asyn.vo.state.t_wc - sync.vo.state.t_wc))
+    if (n_async != SLAM_ASYNC or abs(len(asyn.store) - len(sync.store)) > 1
+            or len(asyn.store) != asyn._kf_count or d_async >= 0.05):
+        raise AssertionError(f"SLAM async mapping: {n_async} frames, {len(asyn.store)} "
+                             f"keyframes against {len(sync.store)}, final pose {d_async} m apart")
+    log(f"SLAM async mapping over {SLAM_ASYNC} frames: {len(asyn.store)} keyframes "
+        f"(sync {len(sync.store)}), final pose {d_async:.2e} m from the synchronous run")
+    for s in slams:
+        s.pipeline.senders.shutdown()
+
+    steady = per_frame_ms[1:]
+    line = {
+        "path": "slam", "frames": len(infos), "keyframes": len(slam.store),
+        "e2e_median_ms": statistics.median(steady),
+        "e2e_p75_ms": float(np.percentile(steady, 75)),
+        "e2e_first_frame_ms": per_frame_ms[0],
+        "e2e_wall_ms_per_frame": wall_ms / len(infos),
+        "ba_ms_per_keyframe": stages["ba"]["mean_ms"], "ba_calls": stages["ba"]["count"],
+        "stage_mean_ms": {k: v["mean_ms"] for k, v in stages.items()},
+        "optimize_global_ms": og_ms, "loop_closures": closures,
+        "ate_before_m": ate_before, "ate_after_m": ate_after,
+        "device_launches_per_frame": launches_per_frame,
+        "device_busy_ms_per_frame": busy_ms,
+        "device_busy_share": busy_ms / prof_wall_ms,
+        "profiled_wall_ms_per_frame": prof_wall_ms,
+        "kernel_launches": launches,
+        "async_keyframes": len(asyn.store), "sync_keyframes": len(sync.store),
+        "async_final_pose_diff_m": d_async,
+    }
+    log(f"SLAM e2e over {len(steady)} frames: median {line['e2e_median_ms']:.3f} ms/frame, "
+        f"p75 {line['e2e_p75_ms']:.3f} ms, BA {line['ba_ms_per_keyframe']:.3f} ms per keyframe")
+    return line, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -499,9 +733,10 @@ def main() -> int:
         _build, remap, remap_kernel, sgm_kernel, speckle, speckle_kernel, stereobm,
         stereobm_kernel,
     )
+    from ros_gpu_stereo_processor_tpu_torch.ops import features
     from ros_gpu_stereo_processor_tpu_torch.parallel import frontend
     from ros_gpu_stereo_processor_tpu_torch.parallel.mesh import make_mesh
-    from ros_gpu_stereo_processor_tpu_torch.utils import calib, timing
+    from ros_gpu_stereo_processor_tpu_torch.utils import calib, evaluate, synth, timing
 
     # the port uses no convolution and no matrix product; both TF32
     # switches are off all the same, so no library path can round
@@ -514,6 +749,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"card: {card_line()}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
+    slam_frames = start_rendering(synth)
 
     with phase("build", seconds):
         lib = _build.build(verbose=True)
@@ -774,6 +1010,17 @@ def main() -> int:
 
     for p in pipes:
         p.senders.shutdown()
+
+    # -- the SLAM engine end to end -------------------------------------------
+    with phase("SLAM e2e", seconds):
+        sframes, gt = slam_frames()
+        kernels = {"K1": k1, "K2": stereobm_kernel.KERNEL, "K3": speckle_kernel.KERNEL,
+                   "K4": sgm_kernel.COST_DOWN, "K5": sgm_kernel.AGGREGATE,
+                   "K6": sgm_kernel.WTA, "K7": speckle_kernel.MAXPROP,
+                   "BL": speckle_kernel.BAND_LABELS}
+        line, launches["slam"] = run_slam(torch, port, _build, features, timing, evaluate,
+                                          calib, sframes, gt, dev, kernels, args.profile)
+        e2e.append(line)
 
     kernels = []
     for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "BL"):

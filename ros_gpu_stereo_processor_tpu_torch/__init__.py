@@ -5,10 +5,13 @@ package, which stays the reference) on torch tensors: mono conversion,
 bilinear rectification, X-Sobel prefilter and SAD block matching or
 semi-global matching (SGM), the left-right check, the speckle filter,
 ``disparity_vis`` and the organised point cloud, on one device or by row
-bands over a band mesh (``parallel/``).  Seven kernels run as hand-written
+bands over a band mesh (``parallel/``); and the SLAM engine on top of it
+(``models/slam.py``: features, visual odometry, keyframes, windowed bundle
+adjustment, loop closure and the pose graph).  Seven kernels run as hand-written
 CUDA on a CUDA device (``csrc/``, built with nvcc at first use) and as
 their plain PyTorch versions on the CPU.  A pipeline runs on the card
-unless the caller asks for ``device="cpu"``.
+(and so do ``StereoSlam`` and ``StereoVisualOdometry``) unless the caller
+asks for ``device="cpu"``.
 
 This package imports torch and numpy only; never jax and never the JAX
 package.
@@ -22,6 +25,8 @@ from ros_gpu_stereo_processor_tpu_torch.config import (
     from_jax_config,
 )
 from ros_gpu_stereo_processor_tpu_torch.models.pipeline import StereoPipeline
+from ros_gpu_stereo_processor_tpu_torch.models.slam import SlamConfig, StereoSlam
+from ros_gpu_stereo_processor_tpu_torch.models.vo import StereoVisualOdometry
 from ros_gpu_stereo_processor_tpu_torch.utils.calib import (
     CameraCalib,
     StereoCameraModel,
@@ -34,10 +39,13 @@ __all__ = [
     "CameraCalib",
     "Outputs",
     "PipelineConfig",
+    "SlamConfig",
     "SpeckleConfig",
     "StereoBMConfig",
     "StereoCameraModel",
     "StereoPipeline",
+    "StereoSlam",
+    "StereoVisualOdometry",
     "from_jax_config",
     "synthetic_stereo_pair",
 ]

@@ -65,10 +65,13 @@ def test_port_imports_without_jax_or_yaml():
         "from ros_gpu_stereo_processor_tpu_torch.ops import (\n"
         "    remap_kernel, sgm, sgm_kernel, speckle_kernel, stereobm_kernel)\n"
         "from ros_gpu_stereo_processor_tpu_torch.parallel import frontend, mesh\n"
-        "print(p.StereoPipeline.__name__)\n"
+        "from ros_gpu_stereo_processor_tpu_torch.ops import features\n"
+        "from ros_gpu_stereo_processor_tpu_torch.models import ba, posegraph, slam, vo\n"
+        "from ros_gpu_stereo_processor_tpu_torch.utils import division, evaluate, io, lie, synth\n"
+        "print(p.StereoPipeline.__name__, p.StereoSlam.__name__, p.StereoVisualOdometry.__name__)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "StereoPipeline"
+    assert out.stdout.strip() == "StereoPipeline StereoSlam StereoVisualOdometry"
