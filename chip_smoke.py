@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's stereo pipeline and SLAM engine once on a CUDA card.
+"""Drive the PyTorch port's stereo pipeline, SLAM engine, serve daemon and
+command line once on a CUDA card.
 
     python3 chip_smoke.py
 
@@ -65,7 +66,36 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      frames, and a 20-frame ``async_mapping=True`` run against the
      synchronous one (the same frame count, keyframes within 1, final pose
      within 0.05 m);
-  6. prints the seconds of each phase, one JSON line per path with its
+  6. runs the serving paths at 752×480 with the EuRoC-like calibration,
+     each frame launching K1, K2 and K3 and no other kernel:
+       * Bayer input: BM defaults on ``bayer_grbg8`` frames (the synthetic
+         pairs' planes as the mosaic), ``Outputs.all()``, 6 frames, 2
+         compared with the CPU run as in 4, device launches and busy ms per
+         frame by ``torch.profiler`` over 3; and ``convert`` from each of
+         the four Bayer phases (to mono8, rgb8, bgr8, and the uint16
+         debayer) against the CPU, exact;
+       * the bilateral tier: BM defaults with the bilateral filter on
+         (ndisp 64, radius 3), iterations 1 and 3, 11 frames each (median
+         and p75 of ``timed_process``), device launches and busy ms per
+         frame by ``torch.profiler`` over 3 frames, 2 frames against the
+         CPU run: every output not derived from the disparity exact, the
+         disparity equal on at least 99.9 % of the pixels (the card's
+         ``expf`` may differ from the CPU's in the last bit) and, where
+         equal, ``disparity_vis`` and the points too;
+       * the bilateral filter by row band: 4 bands on ``["cuda:0"] * 4``
+         against one device on the card, speckle off, 2 frames, exact;
+       * the serve daemon: a ``ServeDaemon`` on the card watching a
+         temporary directory, the calibration dropped as
+         ``camera_info_*.yaml`` after start, 20 pairs dropped one at a time
+         as PNGs written by the port's own encoder, a ``reconfigure.json``
+         setting 32 disparities before frame 10; gates: 20 frames served
+         (K1, K2, K3 20 launches each, counts set to 0 just before), the
+         native ring, frames 0, 10 and 19 equal to the port's CPU pipeline
+         under the config in force; prints the daemon's TIMING line;
+       * the command line, in subprocesses: ``info``, then ``run --euroc``
+         on a 5-frame EuRoC directory whose frame 0 is the served frame 0:
+         exit 0 and that frame's disparity equal to the served one;
+  7. prints the seconds of each phase, one JSON line per path with its
      frame times, one JSON line with each kernel's launches, error, times
      (events and device) and bound, and as its last line
      ``{"ok": true, "device": {...}}``.
@@ -87,6 +117,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -104,6 +135,17 @@ SLAM_PROFILED = 5   # frames in a profiler window
 SLAM_POSE_ATOL = 1e-5
 ATE_GATE_M = 0.1    # tests/test_ate.py's gate
 SLAM_FLAGS = ("is_keyframe", "tracked", "lost", "relocalized", "n_matches")
+BAYER_FRAMES = 6    # Bayer path: 1 warm-up + 5 timed
+BAYER_COMPARED = 2
+BILATERAL_FRAMES = 11   # each bilateral path: 1 warm-up + 10 timed
+BILATERAL_COMPARED = 2
+BILATERAL_PROFILED = 3  # frames in a profiler window
+BILATERAL_EQUAL_SHARE = 0.999   # the card's expf may differ from the CPU's in the last bit
+SERVE_FRAMES = 20
+SERVE_RECONF_AT = 10    # reconfigure.json dropped before this frame
+SERVE_CHECKED = (0, 10, 19)
+SERVE_RANGE = 32        # the num_disparities it sets (from 64)
+CLI_FRAMES = 5
 BANDS = 4
 BAND_ROWS = 134     # a mesh band's launch: 480 / BANDS rows and 2 x 7 halo rows
 KERNEL_REPS = 20
@@ -302,11 +344,13 @@ def compare_outputs(got, want, label):
     d = got["disparity"]
     if d.shape != (H, W) or not np.isfinite(d).all() or not got["disparity_valid"].any():
         raise AssertionError(f"{label}: bad disparity")
-    log(f"{label}: every output matches the CPU run; "
+    xyz_bitwise = np.array_equal(got["pointcloud_xyz"].view(np.int32),
+                                 want["pointcloud_xyz"].view(np.int32))
+    log(f"{label}: every output matches the CPU run (xyz bitwise: {xyz_bitwise}); "
         f"valid {float(got['disparity_valid'].mean()):.4f}")
 
 
-def drive(torch, _build, pipe, frames, outputs, per_frame, keep):
+def drive(torch, _build, pipe, frames, outputs, per_frame, keep, encoding="mono8"):
     """The main path: every count set to 0 just before, read just after.
     Each frame must launch each kernel of ``per_frame`` exactly that many
     times (at least once where the count is None).  Returns (per-frame ms,
@@ -316,7 +360,7 @@ def drive(torch, _build, pipe, frames, outputs, per_frame, keep):
     per_frame_ms, kept = [], []
     for i, (left, right) in enumerate(frames):
         before = {k: kern.launches for k, (kern, _) in per_frame.items()}
-        res, ms = pipe.timed_process(left, right, outputs)
+        res, ms = pipe.timed_process(left, right, outputs, encoding)
         for k, (kern, n) in per_frame.items():
             done = kern.launches - before[k]
             if (done < 1) if n is None else (done != n):
@@ -328,17 +372,20 @@ def drive(torch, _build, pipe, frames, outputs, per_frame, keep):
     return per_frame_ms, kept, {k: kern.launches for k, (kern, _) in per_frame.items()}
 
 
-def summary(label, per_frame_ms, pipelined_ms):
+def summary(label, per_frame_ms, pipelined_ms=None):
     steady = per_frame_ms[1:]
     median = statistics.median(steady)
     p75 = float(np.percentile(steady, 75))
     log(f"{label} per-frame ms (frame 0 warm-up excluded): {[round(x, 3) for x in steady]}")
     log(f"{label} e2e over {len(steady)} frames: median {median:.3f} ms/frame "
-        f"({1e3 / median:.1f} fps), p75 {p75:.3f} ms, pipelined {pipelined_ms:.3f} "
-        f"ms/frame, first frame {per_frame_ms[0]:.3f} ms")
-    return {"path": label, "e2e_frames": len(steady), "e2e_median_ms": median,
-            "e2e_p75_ms": p75, "e2e_pipelined_ms": pipelined_ms,
-            "e2e_first_frame_ms": per_frame_ms[0]}
+        f"({1e3 / median:.1f} fps), p75 {p75:.3f} ms, "
+        + (f"pipelined {pipelined_ms:.3f} ms/frame, " if pipelined_ms is not None else "")
+        + f"first frame {per_frame_ms[0]:.3f} ms")
+    line = {"path": label, "e2e_frames": len(steady), "e2e_median_ms": median,
+            "e2e_p75_ms": p75, "e2e_first_frame_ms": per_frame_ms[0]}
+    if pipelined_ms is not None:
+        line["e2e_pipelined_ms"] = pipelined_ms
+    return line
 
 
 def pipelined(torch, pipe, frames, outputs):
@@ -715,6 +762,318 @@ def run_slam(torch, port, _build, features, timing, evaluate, calib, frames, gt,
     return line, launches
 
 
+def profile_steps(torch, step, n):
+    """Device launches, busy ms and wall ms per step: ``torch.profiler`` over
+    ``n`` synchronous calls of ``step(i)`` (tried twice more if the profiler
+    recorded no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(n):
+                step(i)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+        if rows:
+            busy = sum(r[2] for r in rows)
+            return sum(r[1] for r in rows) / n, busy / n, wall_ms / n, rows
+    raise AssertionError("the profiler recorded no device time in three windows")
+
+
+def check_bayer(torch, color, port, frames, dev):
+    """``convert`` from each Bayer phase on the card against the CPU, exact:
+    uint8 to mono8, rgb8 and bgr8, and the uint16 debayer."""
+    raw = torch.from_numpy(frames[0][0])
+    raw16 = (raw.to(torch.int32) * 257 + 3).to(torch.uint16)
+    names = [n for n, e in color.ENCODINGS.items() if e.is_bayer]
+    for name in names:
+        for dst in ("mono8", "rgb8", "bgr8"):
+            require_equal(f"convert {name} -> {dst}", color.convert(raw.to(dev), name, dst),
+                          color.convert(raw, name, dst).to(dev))
+        pattern = color.encoding(name).bayer_pattern
+        require_equal(f"debayer uint16 {name}", color.debayer_bilinear(raw16.to(dev), pattern),
+                      color.debayer_bilinear(raw16, pattern).to(dev))
+    log(f"Bayer convert: {names} to mono8, rgb8 and bgr8, and the uint16 debayer, "
+        "exact against the CPU")
+
+
+DISPARITY_DERIVED = ("disparity", "disparity_vis", "pointcloud_xyz")
+
+
+def compare_bilateral(got, want, label):
+    """A bilateral frame of the card against the CPU run's: every output not
+    derived from the disparity exact; the disparity equal on at least
+    BILATERAL_EQUAL_SHARE of the pixels, and where it is equal, so are
+    ``disparity_vis`` and the points.  Returns the equal share."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: output keys {sorted(got)} vs {sorted(want)}")
+    for k in want:
+        if k not in DISPARITY_DERIVED:
+            same = (np.array_equal(got[k].view(np.int32), want[k].view(np.int32))
+                    if k == "pointcloud_rgb" else np.array_equal(got[k], want[k]))
+            if not same:
+                raise AssertionError(f"{label} {k}: card and CPU runs differ")
+    eq = got["disparity"] == want["disparity"]
+    share = float(eq.mean())
+    if share < BILATERAL_EQUAL_SHARE:
+        raise AssertionError(f"{label}: disparity equal on {share:.6f} of pixels "
+                             f"(< {BILATERAL_EQUAL_SHARE})")
+    g, w = got["pointcloud_xyz"][eq], want["pointcloud_xyz"][eq]
+    if not (np.array_equal(got["disparity_vis"][eq], want["disparity_vis"][eq])
+            and np.array_equal(np.isnan(g), np.isnan(w))
+            and np.allclose(g, w, rtol=1e-5, atol=0, equal_nan=True)):
+        raise AssertionError(f"{label}: disparity_vis or points differ where disparity agrees")
+    log(f"{label}: disparity equal on {share:.6f} of pixels "
+        f"({int((~eq).sum())} differ); every other output matches the CPU run")
+    return share
+
+
+def run_bayer(torch, _build, new_pipe, frames, outputs, bm_kernels, dev):
+    """BM defaults on ``bayer_grbg8`` frames (the synthetic pairs' planes
+    taken as the mosaic), ``Outputs.all()``: BAYER_FRAMES frames, each
+    launching K1 twice, K2 and K3 once; the first BAYER_COMPARED against the
+    CPU run; a profiler window over 3 frames.  Returns (its JSON line,
+    launches)."""
+    enc = "bayer_grbg8"
+    gpipe, cpipe = new_pipe(device=dev), new_pipe(device="cpu")
+    bframes = frames[:BAYER_FRAMES]
+    ms, got, launches = drive(torch, _build, gpipe, bframes, outputs, bm_kernels,
+                              BAYER_COMPARED, encoding=enc)
+    for i in range(BAYER_COMPARED):
+        compare_outputs(got[i], cpipe.process(*bframes[i], outputs, encoding=enc).fetch(),
+                        f"Bayer frame {i}")
+    n = min(3, len(bframes) - 1)
+    n_launch, busy, wall, _ = profile_steps(
+        torch, lambda i: gpipe.process(*bframes[1 + i], outputs, enc).block_until_ready(), n)
+    log(f"profile bayer over {n} frames: wall {wall:.3f} ms/frame, device busy {busy:.3f} "
+        f"ms/frame ({100 * busy / wall:.1f} %), {n_launch:.0f} kernels and copies/frame")
+    return {**summary("bayer", ms), "device_launches_per_frame": n_launch,
+            "device_busy_ms_per_frame": busy, "device_busy_share": busy / wall,
+            "profiled_wall_ms_per_frame": wall}, launches
+
+
+def run_bilateral(torch, _build, port, new_pipe, frames, outputs, bm_kernels, bm_frame0,
+                  iters, dev):
+    """BM defaults with the bilateral filter on (ndisp 64, radius 3,
+    ``iters``): BILATERAL_FRAMES frames (K1 twice, K2 and K3 once each), the
+    first BILATERAL_COMPARED against the CPU run (compare_bilateral), and a
+    profiler window.  ``bm_frame0``: frame 0's outputs with the filter off.
+    Returns (its JSON line, launches)."""
+    cfg = port.PipelineConfig(bilateral=port.BilateralConfig(
+        enabled=True, ndisp=64, radius=3, iters=iters))
+    gpipe, cpipe = new_pipe(config=cfg, device=dev), new_pipe(config=cfg, device="cpu")
+    label = f"bilateral iters {iters}"
+    bl_frames = frames[:BILATERAL_FRAMES]
+    ms, got, launches = drive(torch, _build, gpipe, bl_frames, outputs, bm_kernels,
+                              BILATERAL_COMPARED)
+    shares = [compare_bilateral(got[i], cpipe.process(*bl_frames[i], outputs).fetch(),
+                                f"{label} frame {i}") for i in range(BILATERAL_COMPARED)]
+    changed = float((got[0]["disparity"] != bm_frame0["disparity"]).mean())
+    n_launch, busy, wall, rows = profile_steps(
+        torch, lambda i: gpipe.process(*bl_frames[1 + i], outputs).block_until_ready(),
+        BILATERAL_PROFILED)
+    log(f"profile {label} over {BILATERAL_PROFILED} frames: wall {wall:.3f} ms/frame, "
+        f"device busy {busy:.3f} ms/frame ({100 * busy / wall:.1f} %), "
+        f"{n_launch:.0f} kernels and copies/frame; the filter changed {changed:.4f} of "
+        f"frame 0's pixels")
+    for key, count, dms in sorted(rows, key=lambda r: -r[2])[:8]:
+        log(f"  {dms / BILATERAL_PROFILED:8.4f} ms/frame  "
+            f"{count / BILATERAL_PROFILED:6.1f}/frame  {key[:90]}")
+    return {**summary(f"bilateral_iters{iters}", ms),
+            "disparity_equal_share_min": min(shares), "changed_share_frame0": changed,
+            "device_launches_per_frame": n_launch, "device_busy_ms_per_frame": busy,
+            "device_busy_share": busy / wall, "profiled_wall_ms_per_frame": wall}, launches
+
+
+def run_bilateral_mesh(torch, _build, port, new_pipe, make_mesh, frames, outputs,
+                       bm_kernels, dev):
+    """The bilateral filter by row band: ``BANDS`` bands on one card against
+    one device on the card, speckle off (the band speckle filter is its own
+    approximation), exact, on 2 frames (K1 and K2 per band, K3 never).
+    Returns launches."""
+    cfg = port.PipelineConfig(speckle=port.SpeckleConfig(max_speckle_size=0),
+                              bilateral=port.BilateralConfig(enabled=True))
+    gpipe = new_pipe(config=cfg, mesh=make_mesh(BANDS, devices=[dev] * BANDS))
+    one = new_pipe(config=cfg, device=dev)
+    per_frame = {"K1": (bm_kernels["K1"][0], 2 * BANDS),
+                 "K2": (bm_kernels["K2"][0], BANDS), "K3": (bm_kernels["K3"][0], 0)}
+    _, got, launches = drive(torch, _build, gpipe, frames[:2], outputs, per_frame, 2)
+    for i in range(2):
+        compare_outputs(got[i], one.process(*frames[i], outputs).fetch(),
+                        f"bilateral mesh frame {i}, speckle off, against one device")
+    return launches
+
+
+def calib_yaml(path, c):
+    """Write one camera's calibration in the camera_calibration_parsers
+    layout (what a camera node drops as camera_info_*.yaml)."""
+    def block(name, a, rows, cols):
+        data = ", ".join(repr(float(v)) for v in np.asarray(a).reshape(-1))
+        return f"{name}:\n  rows: {rows}\n  cols: {cols}\n  data: [{data}]\n"
+
+    with open(path, "w") as f:
+        f.write(f"image_width: {c.width}\nimage_height: {c.height}\ncamera_name: {c.name}\n"
+                + block("camera_matrix", c.K, 3, 3)
+                + f"distortion_model: {c.distortion_model}\n"
+                + block("distortion_coefficients", c.D, 1, c.D.size)
+                + block("rectification_matrix", c.R, 3, 3)
+                + block("projection_matrix", c.P, 3, 4))
+
+
+def drop_png(path, img, io):
+    """Write a PNG with the port's own encoder, renamed into place whole."""
+    tmp = os.path.join(os.path.dirname(path), "." + os.path.basename(path))
+    with open(tmp, "wb") as f:
+        f.write(io.png_encode(img))
+    os.replace(tmp, path)
+
+
+def run_serve(torch, port, _build, io, calib, kernels, frames, model, work, dev):
+    """The serve path: a ``ServeDaemon`` on the card watching ``work/watch``
+    with no calibration; the camera_info files drop after start, then the
+    pairs one at a time as PNGs (the port's encoder), a reconfigure.json
+    before frame SERVE_RECONF_AT.  Every count set to 0 just before the
+    frames and read just after.  Gates: every frame served, the ring native,
+    frames SERVE_CHECKED equal to the port's CPU pipeline under the config in
+    force.  Returns (its JSON line, launches, the served disparities)."""
+    from ros_gpu_stereo_processor_tpu_torch.runtime import native_available
+    from ros_gpu_stereo_processor_tpu_torch.runtime.serve import ServeDaemon
+
+    watch, out = os.path.join(work, "watch"), os.path.join(work, "served")
+    for side in ("left", "right"):
+        os.makedirs(os.path.join(watch, side))
+    outputs = port.Outputs.of("disparity", "disparity_vis")
+    daemon = ServeDaemon(watch, out, outputs, device=dev)
+    daemon.poll_once()
+    if daemon.pipe is not None:
+        raise AssertionError("serve: a model before any camera info")
+    yamls = [os.path.join(watch, f) for f in ("camera_info_left.yaml", "camera_info_right.yaml")]
+    calib_yaml(yamls[0], model.left.calib)
+    calib_yaml(yamls[1], model.right.calib)
+    daemon.poll_once()
+    if daemon.pipe is None:
+        raise AssertionError("serve: the camera-info drops did not initialise the model")
+
+    def serve_until(n, deadline):
+        while daemon.n_frames < n:
+            daemon.poll_once()
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"serve: {daemon.n_frames} frames served, not {n}")
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i, (left, right) in enumerate(frames[:SERVE_FRAMES]):
+        if i == SERVE_RECONF_AT:
+            daemon.drain()
+            with open(os.path.join(watch, "reconfigure.json"), "w") as f:
+                json.dump({"disparity_range": SERVE_RANGE}, f)
+        for side, img in (("left", left), ("right", right)):
+            drop_png(os.path.join(watch, side, f"{1.0 + 0.05 * i:.6f}.png"), img, io)
+        serve_until(i + 1, time.perf_counter() + 60)
+    daemon.drain()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: kern.launches for k, kern in kernels.items()}
+    log(f"serve launches over {SERVE_FRAMES} frames: {launches}")
+    for k, n in launches.items():
+        if n != (SERVE_FRAMES if k in ("K1", "K2", "K3") else 0):
+            raise AssertionError(f"serve: {k} launched {n} times")
+    native = daemon.ingest.ring._lib is not None and native_available()
+    if not native:
+        raise AssertionError("serve: the ingest ring is not the native one")
+    if daemon.pipe.config.stereobm.num_disparities != SERVE_RANGE:
+        raise AssertionError("serve: reconfigure.json not applied")
+    timing_line, timing = daemon._timing_line(), daemon.timing()
+    ring = daemon.ingest.ring.stats()
+    daemon.close()
+
+    cpu = port.StereoPipeline(calib.StereoCameraModel.from_files(*yamls), device="cpu")
+    served = {}
+    for i in SERVE_CHECKED:
+        if i == SERVE_RECONF_AT:
+            cpu.reconfigure(disparity_range=SERVE_RANGE)
+        want = cpu.process(*frames[i], outputs).fetch()
+        stamp = 1.0 + 0.05 * i
+        served[i] = np.load(os.path.join(out, f"disparity_{stamp:.6f}.npy"))
+        with open(os.path.join(out, f"disparity_vis_{stamp:.6f}.png"), "rb") as f:
+            vis = io.png_decode(f.read())
+        if not (np.array_equal(served[i], want["disparity"])
+                and np.array_equal(vis, want["disparity_vis"])):
+            raise AssertionError(f"serve frame {i}: differs from the CPU pipeline")
+    cpu.senders.shutdown()
+    n_files = len([f for f in os.listdir(out) if f.endswith(".npy")])
+    if n_files != SERVE_FRAMES:
+        raise AssertionError(f"serve: {n_files} disparity files for {SERVE_FRAMES} frames")
+    log(f"serve: {SERVE_FRAMES} frames served (native ring {ring}); frames {SERVE_CHECKED} "
+        f"equal the CPU pipeline under the config in force; {timing_line}")
+    line = {"path": "serve", "frames": SERVE_FRAMES, "native_ring": native,
+            "fps": timing["fps"], "p50_dispatch_to_publish_ms": timing["p50_ms"],
+            "p95_dispatch_to_publish_ms": timing["p95_ms"],
+            "wall_ms_per_frame": wall_ms / SERVE_FRAMES, "kernel_launches": launches,
+            "ring": ring}
+    return line, launches, served
+
+
+def run_cli(io, calib_yamls, frames, served0, work):
+    """``python3 -m ros_gpu_stereo_processor_tpu_torch.cli`` in subprocesses:
+    ``info``, then ``run --euroc`` on a CLI_FRAMES-frame EuRoC directory
+    whose frame 0 is the serve phase's frame 0.  Gates: exit 0; the launch
+    counts ``run`` reports (set to 0 just before its frames) are CLI_FRAMES
+    for K1, K2 and K3 and 0 for every other kernel; frame 0's disparity
+    equals what the daemon served for that pair.  Returns (its JSON line,
+    the launches by kernel)."""
+    root = os.path.join(work, "euroc")
+    rows = []
+    for i, (left, right) in enumerate(frames[:CLI_FRAMES]):
+        ts = 1_000_000_000 + 50_000_000 * i
+        for cam, img in (("cam0", left), ("cam1", right)):
+            os.makedirs(os.path.join(root, "mav0", cam, "data"), exist_ok=True)
+            drop_png(os.path.join(root, "mav0", cam, "data", f"{ts}.png"), img, io)
+        rows.append(f"{ts},{ts}.png")
+    for cam in ("cam0", "cam1"):
+        with open(os.path.join(root, "mav0", cam, "data.csv"), "w") as f:
+            f.write("#timestamp [ns],filename\n" + "\n".join(rows) + "\n")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cal = ["--calib-left", calib_yamls[0], "--calib-right", calib_yamls[1]]
+    out = os.path.join(work, "cli_out")
+    secs = {}
+    for name, args in (("info", ["info", *cal]),
+                       ("run", ["run", *cal, "--euroc", root, "--out-dir", out,
+                                "--outputs", "disparity,disparity_vis", "--save-frames", "1"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ros_gpu_stereo_processor_tpu_torch.cli",
+                               *args], capture_output=True, text=True, cwd=here, env=env,
+                              timeout=300)
+        secs[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"cli {name}: exit {proc.returncode}\n{proc.stdout}\n"
+                                 f"{proc.stderr}")
+        lines = proc.stdout.strip().splitlines()
+        log(f"cli {name} ({secs[name]:.1f} s): {lines[0]}" + (f" ... {lines[-1]}" if len(lines) > 1 else ""))
+    report = [ln for ln in lines if ln.startswith("kernel launches: ")]
+    if len(report) != 1:
+        raise AssertionError("cli run: no kernel launch report")
+    by_symbol = json.loads(report[0][len("kernel launches: "):])
+    launches = {k: by_symbol.get(SOURCES[k][0], 0) for k in SOURCES}
+    for sym, n in by_symbol.items():
+        want = CLI_FRAMES if sym in (SOURCES[k][0] for k in ("K1", "K2", "K3")) else 0
+        if n != want:
+            raise AssertionError(f"cli run: {sym} launched {n} times, not {want}")
+    log(f"cli run launches over {CLI_FRAMES} frames: {launches}")
+    d0 = np.load(os.path.join(out, "disparity_0000.npy"))
+    if not np.array_equal(d0, served0):
+        raise AssertionError("cli run: frame 0's disparity differs from the served frame 0")
+    log(f"cli: frame 0's disparity equals the serve phase's for the same pair")
+    return ({"path": "cli", "frames": CLI_FRAMES, "info_s": secs["info"], "run_s": secs["run"],
+             "kernel_launches": launches}, launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -736,7 +1095,8 @@ def main() -> int:
     from ros_gpu_stereo_processor_tpu_torch.ops import features
     from ros_gpu_stereo_processor_tpu_torch.parallel import frontend
     from ros_gpu_stereo_processor_tpu_torch.parallel.mesh import make_mesh
-    from ros_gpu_stereo_processor_tpu_torch.utils import calib, evaluate, synth, timing
+    from ros_gpu_stereo_processor_tpu_torch.ops import color
+    from ros_gpu_stereo_processor_tpu_torch.utils import calib, evaluate, io, synth, timing
 
     # the port uses no convolution and no matrix product; both TF32
     # switches are off all the same, so no library path can round
@@ -915,6 +1275,7 @@ def main() -> int:
                      "K3": (speckle_kernel.KERNEL, 1)}
         bm_ms, gpu_out, launches["bm"] = drive(torch, _build, pipe, frames, outputs,
                                                per_frame, COMPARED)
+        gpu_bm0 = gpu_out[0]
         log(f"BM launches over {FRAMES} frames: {launches['bm']}")
         bm_pipelined = pipelined(torch, pipe, frames, outputs)
         for i in range(COMPARED):
@@ -1008,19 +1369,49 @@ def main() -> int:
                                             per_frame, 1)
             compare_outputs(got[0], cpipe.process(*frame, outputs).fetch(), f"{label} frame 0")
 
+    # -- Bayer input, the bilateral tier, bilateral by band ------------------
+    bm_kernels = {"K1": (k1, 2), "K2": (stereobm_kernel.KERNEL, 1),
+                  "K3": (speckle_kernel.KERNEL, 1)}
+    with phase("Bayer", seconds):
+        check_bayer(torch, color, port, frames, dev)
+        line, launches["bayer"] = run_bayer(torch, _build, new_pipe, frames, outputs,
+                                            bm_kernels, dev)
+        e2e.append(line)
+    with phase("bilateral", seconds):
+        for iters in (1, 3):
+            line, launches[f"bilateral iters {iters}"] = run_bilateral(
+                torch, _build, port, new_pipe, frames, outputs, bm_kernels, gpu_bm0,
+                iters, dev)
+            e2e.append(line)
+    with phase("bilateral mesh", seconds):
+        launches["bilateral mesh"] = run_bilateral_mesh(
+            torch, _build, port, new_pipe, make_mesh, frames, outputs, bm_kernels, dev)
+
     for p in pipes:
         p.senders.shutdown()
 
     # -- the SLAM engine end to end -------------------------------------------
+    kernels = {"K1": k1, "K2": stereobm_kernel.KERNEL, "K3": speckle_kernel.KERNEL,
+               "K4": sgm_kernel.COST_DOWN, "K5": sgm_kernel.AGGREGATE,
+               "K6": sgm_kernel.WTA, "K7": speckle_kernel.MAXPROP,
+               "BL": speckle_kernel.BAND_LABELS}
     with phase("SLAM e2e", seconds):
         sframes, gt = slam_frames()
-        kernels = {"K1": k1, "K2": stereobm_kernel.KERNEL, "K3": speckle_kernel.KERNEL,
-                   "K4": sgm_kernel.COST_DOWN, "K5": sgm_kernel.AGGREGATE,
-                   "K6": sgm_kernel.WTA, "K7": speckle_kernel.MAXPROP,
-                   "BL": speckle_kernel.BAND_LABELS}
         line, launches["slam"] = run_slam(torch, port, _build, features, timing, evaluate,
                                           calib, sframes, gt, dev, kernels, args.profile)
         e2e.append(line)
+
+    # -- the serve daemon and the CLI -------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        with phase("serve", seconds):
+            line, launches["serve"], served = run_serve(
+                torch, port, _build, io, calib, kernels, frames, model, work, dev)
+            e2e.append(line)
+        with phase("CLI", seconds):
+            yamls = [os.path.join(work, "watch", f"camera_info_{s}.yaml")
+                     for s in ("left", "right")]
+            line, launches["cli"] = run_cli(io, yamls, frames, served[0], work)
+            e2e.append(line)
 
     kernels = []
     for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "BL"):

@@ -21,14 +21,18 @@ one to the other.  The matcher is the block matcher or, with
 ``algorithm="sgm"``, semi-global matching: the fused kernels for 4 paths,
 the plain recurrences of ops/sgm.py for 2 and 8, as in the JAX pipeline.
 
+The optional bilateral post-filter (``config.bilateral.enabled``) refines
+the disparity after the speckle filter, guided by the left rectified image
+(ops/bilateral.py, plain torch).
+
 With ``mesh`` (a band mesh of parallel/mesh.py) the frame runs the row-band
-frontend of parallel/frontend.py: rectification, matching and the speckle
-filter by band, as the JAX pipeline's ``mesh`` branch does (SGM there is
-always the 4-path row-band SGM, whatever ``sgm_paths`` says).  The images,
-the disparity and every output are assembled whole on the mesh's first
-device, which changes no value.  Slab mode (``shard_mode="disp"``) and the
-bilateral filter are not ported yet (ROADMAP.md) and raise
-``NotImplementedError``.
+frontend of parallel/frontend.py: rectification, matching, the speckle
+filter and the bilateral filter by band, as the JAX pipeline's ``mesh``
+branch does (SGM there is always the 4-path row-band SGM, whatever
+``sgm_paths`` says).  The images, the disparity and every output are
+assembled whole on the mesh's first device, which changes no value.  Slab
+mode (``shard_mode="disp"``) is not ported yet (ROADMAP.md, Queue 1 item 13)
+and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from ros_gpu_stereo_processor_tpu_torch.config import (
     StereoBMConfig,
     sanitize_reconfigure,
 )
+from ros_gpu_stereo_processor_tpu_torch.ops import bilateral as bilateral_ops
 from ros_gpu_stereo_processor_tpu_torch.ops import color as color_ops
 from ros_gpu_stereo_processor_tpu_torch.ops import colormap as colormap_ops
 from ros_gpu_stereo_processor_tpu_torch.ops import remap_kernel
@@ -61,6 +66,7 @@ from ros_gpu_stereo_processor_tpu_torch.parallel import frontend as par
 from ros_gpu_stereo_processor_tpu_torch.parallel.mesh import BandMesh
 from ros_gpu_stereo_processor_tpu_torch.utils import msgs as msgs_mod
 from ros_gpu_stereo_processor_tpu_torch.utils.calib import StereoCameraModel
+from ros_gpu_stereo_processor_tpu_torch.utils.device import require_device
 from ros_gpu_stereo_processor_tpu_torch.utils.msgs import (
     Header,
     ImageMessage,
@@ -95,10 +101,6 @@ def _pipeline_step(
     only the stages ``outputs`` needs.  With ``mesh``, ``band_maps`` holds
     each band's rows of ``rect_maps`` on its device, and the rectified
     images and the disparity are band lists until assembled."""
-    if bilateral.enabled:
-        raise NotImplementedError(
-            "the bilateral filter is not ported yet (ROADMAP.md, Queue 1 item 10"
-            + (", and bilateral_row_sharded, item 13)" if mesh is not None else ")"))
     res: Dict[str, torch.Tensor] = {}
 
     def whole(x):
@@ -116,18 +118,32 @@ def _pipeline_step(
         bands = par.remap_row_sharded(stack, maps, mesh, shard_axis)
         return {s: [b[k] for b in bands] for k, s in enumerate(sides)}
 
+    enc = color_ops.encoding(encoding)
+    bayer_rgb = None
+    if enc.is_bayer and (outputs.needs_mono or outputs.needs_color):
+        # one debayer of both sides: mono8 and rgb8 both derive from it, with
+        # the values convert(..., "mono8") and convert(..., "rgb8") give
+        bayer_rgb = color_ops.debayer_bilinear(
+            torch.stack([left_raw, right_raw]), enc.bayer_pattern)
+
     mono = {}
     if outputs.needs_mono:
-        mono["left"] = color_ops.convert(left_raw, encoding, "mono8")
-        mono["right"] = color_ops.convert(right_raw, encoding, "mono8")
+        if bayer_rgb is not None:
+            mono = dict(zip(SIDES, color_ops.rgb_to_gray_u8(bayer_rgb)))
+        else:
+            mono["left"] = color_ops.convert(left_raw, encoding, "mono8")
+            mono["right"] = color_ops.convert(right_raw, encoding, "mono8")
         for side in SIDES:
             if f"mono_{side}" in outputs:
                 res[f"mono_{side}"] = mono[side]
 
     colr = {}
     if outputs.needs_color:
-        colr["left"] = color_ops.convert(left_raw, encoding, "rgb8")
-        colr["right"] = color_ops.convert(right_raw, encoding, "rgb8")
+        if bayer_rgb is not None:
+            colr = dict(zip(SIDES, bayer_rgb))
+        else:
+            colr["left"] = color_ops.convert(left_raw, encoding, "rgb8")
+            colr["right"] = color_ops.convert(right_raw, encoding, "rgb8")
         for side in SIDES:
             if f"color_{side}" in outputs:
                 res[f"color_{side}"] = colr[side]
@@ -179,6 +195,21 @@ def _pipeline_step(
                 iters=speckle.propagation_iters,
                 fill_value=float(bm.min_disparity - 1),
             )
+        if bilateral.enabled:
+            # the intended post-filter of the reference's stub: refine the
+            # disparity guided by the left rectified image; invalid pixels
+            # stay as they are
+            kw = dict(ndisp=bilateral.ndisp, radius=bilateral.radius,
+                      iters=bilateral.iters, edge_threshold=bilateral.edge_threshold,
+                      max_disc_threshold=bilateral.max_disc_threshold,
+                      sigma_range=bilateral.sigma_range)
+            if mesh is not None:
+                refined = mesh.gather(par.bilateral_row_sharded(
+                    disp, rect_mono["left"], mesh, shard_axis, **kw))
+            else:
+                refined = bilateral_ops.disparity_bilateral_filter(
+                    disp, rect_mono["left"], **kw)
+            disp = torch.where(valid, refined, disp)
         if "disparity" in outputs:
             res["disparity"] = disp
             res["disparity_valid"] = valid
@@ -314,7 +345,7 @@ class StereoPipeline:
                 raise ValueError(f"device {device} is not the mesh's first device "
                                  f"{mesh.devices[0]}")
             device = mesh.devices[0]
-        self.device = torch.device("cuda" if device is None else device)
+        self.device = require_device(device)
         self.width, self.height = int(width), int(height)
         self.fx, self.baseline = float(fx), float(baseline)
         self.config = config

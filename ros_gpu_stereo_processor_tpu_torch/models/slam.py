@@ -42,9 +42,9 @@ from ros_gpu_stereo_processor_tpu_torch.models.vo import (
     StereoVisualOdometry,
     inlier_gate,
     pnp_gauss_newton,
-    require_device,
 )
 from ros_gpu_stereo_processor_tpu_torch.ops import features as feat_ops
+from ros_gpu_stereo_processor_tpu_torch.utils.device import require_device
 from ros_gpu_stereo_processor_tpu_torch.utils.evaluate import Trajectory
 from ros_gpu_stereo_processor_tpu_torch.utils.timing import StageTimer
 

@@ -29,18 +29,8 @@ import torch
 
 from ros_gpu_stereo_processor_tpu_torch.ops import features as feat_ops
 from ros_gpu_stereo_processor_tpu_torch.utils import lie
+from ros_gpu_stereo_processor_tpu_torch.utils.device import require_device
 from ros_gpu_stereo_processor_tpu_torch.utils.division import div_const, rdiv
-
-
-def require_device(device) -> torch.device:
-    """``device`` as a torch.device (the card when None); raises when it is
-    a CUDA device and PyTorch has no CUDA."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {dev} asked for, but PyTorch has no CUDA device here; pass "
-            "device='cpu' to run on the CPU")
-    return dev
 
 
 class TrackedFrame(NamedTuple):

@@ -1,23 +1,28 @@
-"""Color / encoding conversion ops (gray, channel order, bit depth).
+"""Color / encoding conversion ops (debayer, gray, channel order, bit depth).
 
 The PyTorch port of ``ros_gpu_stereo_processor_tpu/ops/color.py``, the
 replacement for the reference's encoding-driven converter
 (src/GPUStereoProcessor.cpp:65-88,119-172):
 
+  * bilinear debayer for the four Bayer phases (masked 3×3 weighted sums,
+    normalised by the sum of the mask under the same weights),
   * RGB↔BGR channel swap, gray↔color replication,
   * color→gray with BT.601 weights, rounded half to even,
   * 8↔16-bit rescale with the reference's 65535/255 scale factor
     (src/GPUStereoProcessor.cpp:154-158).
 
 Each function is the same sequence of float32 operations as its JAX twin, so
-integer results agree exactly.  The Bayer encodings are recognised but their
-debayer is not ported yet (ROADMAP.md, Queue 1 item 2): ``convert`` raises
-``NotImplementedError`` for them.
+integer results agree exactly.  The debayer's 3×3 sums are nine shifted-slice
+multiply-adds over a zero-padded tensor rather than a convolution: every term
+is a small integer, exact in float32, and the quotient is one IEEE division,
+so the result is exact on every device (a cuDNN convolution may round uint16
+input through TF32).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -105,6 +110,79 @@ def rescale_depth(img: torch.Tensor, src_bits: int, dst_bits: int) -> torch.Tens
 
 
 # ---------------------------------------------------------------------------
+# Debayer (bilinear, masked weighted sums)
+# ---------------------------------------------------------------------------
+
+
+_K_RB = ((1, 2, 1), (2, 4, 2), (1, 2, 1))
+_K_G = ((0, 1, 0), (1, 4, 1), (0, 1, 0))
+
+
+def _bayer_masks(pattern: Tuple[int, ...], height: int, width: int,
+                 device=None) -> torch.Tensor:
+    """(3, H, W) float32 masks: which pixels sample R/G/B under this phase."""
+    masks = torch.zeros((3, height, width), dtype=torch.float32, device=device)
+    for dy in range(2):
+        for dx in range(2):
+            masks[pattern[dy * 2 + dx], dy::2, dx::2] = 1.0
+    return masks
+
+
+def _sum3x3(x: torch.Tensor, k) -> torch.Tensor:
+    """'Same' 3×3 weighted sum of a (..., H, W) float32 tensor, zeros outside:
+    the nonzero taps of ``k`` as shifted slices (scaled where the weight is
+    not 1), added in row-major order."""
+    H, W = x.shape[-2:]
+    xp = torch.nn.functional.pad(x, (1, 1, 1, 1))
+    out = None
+    for i in range(3):
+        for j in range(3):
+            if k[i][j] == 0:
+                continue
+            term = xp[..., i:i + H, j:j + W]
+            if k[i][j] != 1:
+                term = term * float(k[i][j])
+            out = term if out is None else out + term
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def _bayer_weights(pattern: Tuple[int, ...], height: int, width: int,
+                   device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (3, H, W) masks of a phase and their 3×3 sums under each channel's
+    kernel (the denominators); they depend only on the phase, the shape and
+    the device, so they are made once per (pattern, H, W, device)."""
+    masks = _bayer_masks(pattern, height, width, device)
+    den = torch.stack([_sum3x3(masks[0], _K_RB), _sum3x3(masks[1], _K_G),
+                       _sum3x3(masks[2], _K_RB)])
+    return masks, den
+
+
+def debayer_bilinear(raw: torch.Tensor, pattern: Tuple[int, ...]) -> torch.Tensor:
+    """Bilinear demosaic: (..., H, W) Bayer mosaic → (..., H, W, 3) RGB.
+
+    Each channel is the weighted sum of its samples under the 3×3 kernel
+    divided by the sum of the mask under the same kernel (the per-channel
+    weighted average of the available samples; border pixels use the
+    renormalised partial kernel).  uint8/uint16 input is rounded (+0.5,
+    clipped, truncated) back to its dtype; float input stays float32.
+    R and B share their kernel, so their sums run as one (..., 2, H, W)
+    pass."""
+    H, W = raw.shape[-2:]
+    masks, den = _bayer_weights(tuple(pattern), H, W, raw.device)
+    samples = raw.float().unsqueeze(-3) * masks              # (..., 3, H, W)
+    num_rb = _sum3x3(samples[..., 0::2, :, :], _K_RB)
+    num_g = _sum3x3(samples[..., 1:2, :, :], _K_G)
+    num = torch.cat([num_rb[..., :1, :, :], num_g, num_rb[..., 1:, :, :]], dim=-3)
+    rgb = num / den                # tensor by tensor: one IEEE division
+    if raw.dtype == torch.uint8:
+        rgb = torch.clamp(rgb + 0.5, 0, 255).to(torch.uint8)
+    elif raw.dtype == torch.uint16:
+        rgb = torch.clamp(rgb + 0.5, 0, 65535).to(torch.uint16)
+    return rgb.movedim(-3, -1).contiguous()
+
+
+# ---------------------------------------------------------------------------
 # General conversion entry point
 # ---------------------------------------------------------------------------
 
@@ -112,9 +190,7 @@ def rescale_depth(img: torch.Tensor, src_bits: int, dst_bits: int) -> torch.Tens
 def _to_canonical_rgb(img: torch.Tensor, enc: Encoding) -> torch.Tensor:
     """Convert any supported encoding to (..., 3) uint8/uint16 RGB."""
     if enc.is_bayer:
-        raise NotImplementedError(
-            f"{enc.name}: the bilinear debayer is not ported yet "
-            "(ROADMAP.md, Queue 1 item 2)")
+        return debayer_bilinear(img, enc.bayer_pattern)
     if enc.channels == 1:
         return gray_to_rgb(img)
     # channel_order maps channel-position -> color; invert to color -> position
@@ -145,12 +221,8 @@ def convert(img: torch.Tensor, src: str, dst: str) -> torch.Tensor:
     se, de = encoding(src), encoding(dst)
     if se.name == de.name:
         return img
-    if se.is_bayer or de.is_bayer:
-        raise NotImplementedError(
-            f"{src}->{dst}: Bayer conversions are not ported yet "
-            "(ROADMAP.md, Queue 1 item 2)")
     # pure bit-depth change of same layout (mono8<->mono16)
-    if se.channels == de.channels == 1:
+    if se.channels == de.channels == 1 and not se.is_bayer:
         return rescale_depth(img, se.bit_depth, de.bit_depth)
     rgb = _to_canonical_rgb(img, se)
     if se.bit_depth != de.bit_depth:

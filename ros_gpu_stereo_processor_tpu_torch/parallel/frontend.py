@@ -1,4 +1,5 @@
-"""Row-band frontend: rectification, matching and the speckle filter by band.
+"""Row-band frontend: rectification, matching, the speckle filter and the
+bilateral filter by band.
 
 The port of the row-band half of
 ``ros_gpu_stereo_processor_tpu/parallel/frontend.py``.  An image is split
@@ -21,14 +22,16 @@ across the band list (:func:`halo_exchange`, :func:`shift_down`,
   * :func:`filter_speckles_row_sharded`: band-local labels, a cross-band
     merge loop, band-local sizing, boundary-record reconciliation and K7,
     the max-propagation of the reconciled sizes.
+  * :func:`bilateral_row_sharded`: the bilateral filter per band on rows
+    extended by ``2·iters·radius`` (plain torch, as on one device);
+    bit-identical to one device while the halo fits in a band.
 
 Each band's prefilter reads the rows its stencil needs from its neighbours
 (edge rows replicated at the image's first and last row, as the whole-image
 prefilter does), so band prefilters and texture sums equal the whole
 image's.  Kernel-backed ops dispatch on the device of their tensors, so a
 CPU mesh runs the plain versions and a CUDA mesh the kernels.  Slab mode
-(``disparity_slab_sharded``) and ``bilateral_row_sharded`` are not ported
-(ROADMAP.md, Queue 1 item 13).
+(``disparity_slab_sharded``) is not ported (ROADMAP.md, Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from typing import List, Sequence, Tuple, Union
 import torch
 
 from ros_gpu_stereo_processor_tpu_torch.config import StereoBMConfig
+from ros_gpu_stereo_processor_tpu_torch.ops import bilateral as bilateral_ops
 from ros_gpu_stereo_processor_tpu_torch.ops import remap_kernel
 from ros_gpu_stereo_processor_tpu_torch.ops import sgm_kernel
 from ros_gpu_stereo_processor_tpu_torch.ops import speckle as speckle_ops
@@ -417,3 +421,49 @@ def filter_speckles_row_sharded(
         disp_out.append(torch.where(keep, d, fill))
         keep_out.append(keep)
     return disp_out, keep_out
+
+
+# ---------------------------------------------------------------------------
+# Bilateral filter
+# ---------------------------------------------------------------------------
+
+
+def bilateral_row_sharded(
+    disp,
+    guide,
+    mesh: BandMesh,
+    axis: str = "rows",
+    *,
+    ndisp: int = 64,
+    radius: int = 3,
+    iters: int = 1,
+    edge_threshold: float = 0.1,
+    max_disc_threshold: float = 0.2,
+    sigma_range: float = 10.0,
+) -> Bands:
+    """Row-band disparity bilateral filter, the JAX
+    ``bilateral_row_sharded``.  Each of the ``2·iters`` checkerboard
+    half-steps moves information at most ``radius`` rows, so a halo of
+    ``2·iters·radius`` rows (exchanged once: the disparity, the guide and a
+    ones "valid" band, zeros beyond the image so out-of-image taps weigh 0)
+    makes each band's own rows bit-identical to the single-device filter.
+    The halo is clamped to the band height; beyond that the result is the
+    tiled approximation the JAX version computes.  Returns the refined
+    disparity bands."""
+    D = _bands(mesh, disp, axis)
+    G = _bands(mesh, guide, axis)
+    hb, W = D[0].shape
+    H = hb * len(D)
+    halo = min(2 * iters * radius, hb)
+    d_e = halo_exchange(mesh, [d.float() for d in D], halo)
+    g_e = halo_exchange(mesh, [g.float() for g in G], halo)
+    v_e = halo_exchange(mesh, [torch.ones((hb, W), dtype=torch.float32, device=d.device)
+                               for d in D], halo)
+    out = []
+    for i, (d, g, v) in enumerate(zip(d_e, g_e, v_e)):
+        r = bilateral_ops._bilateral_core(
+            d, g, v, ndisp=ndisp, radius=radius, iters=iters,
+            edge_threshold=edge_threshold, max_disc_threshold=max_disc_threshold,
+            sigma_range=sigma_range, row_offset=i * hb - halo, total_rows=H)
+        out.append(r[halo:halo + hb].to(D[i].dtype))
+    return out

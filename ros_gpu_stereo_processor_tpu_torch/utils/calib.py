@@ -1,6 +1,8 @@
 """Camera calibration & stereo geometry in pure numpy (the PyTorch port's copy
 of ``ros_gpu_stereo_processor_tpu/utils/calib.py``; ``yaml`` is imported only
-when a YAML file is read, so the import path needs only numpy).
+when a YAML file is read, and where it is not installed the camera-info
+layout is parsed by :func:`parse_camera_info_yaml`, so the port needs only
+numpy).
 
 Replaces the reference's use of ``image_geometry::PinholeCameraModel`` /
 ``StereoCameraModel`` plus a *forked* GPU image_geometry (reference:
@@ -93,13 +95,87 @@ def camera_info_to_calib(info: dict) -> CameraCalib:
     )
 
 
+def _yaml_scalar(text: str):
+    """A scalar of the camera-info layout: a number, a quoted or bare
+    string, or a flow list of numbers (``[1, 0., 2.5e-3]``)."""
+    text = text.strip()
+    if text.startswith("["):
+        if not text.endswith("]"):
+            raise ValueError(f"unterminated list {text!r}")
+        return [float(v) for v in text[1:-1].replace("\n", " ").split(",") if v.strip()]
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
+        return text[1:-1]
+    for cast in (int, float):
+        try:
+            return cast(text)
+        except ValueError:
+            pass
+    return text
+
+
+def parse_camera_info_yaml(text: str) -> dict:
+    """Parse the ``camera_calibration_parsers`` YAML layout without ``yaml``:
+    flat ``key: value`` scalars at the top level, and one level of nested
+    blocks (``camera_matrix:`` with indented ``rows``/``cols``/``data: [...]``,
+    a flow list that may span lines).  Comments and blank lines are skipped.
+    Anything else (block sequences, deeper nesting, anchors) raises
+    ``ValueError``."""
+    doc: dict = {}
+    block = None            # the nested mapping being filled
+    pending = None          # (mapping, key, text so far) of an open flow list
+    for lineno, line in enumerate(text.splitlines(), 1):
+        if pending is not None:
+            m, key, acc = pending
+            acc += " " + line.split("#", 1)[0].strip()
+            if acc.rstrip().endswith("]"):
+                m[key] = _yaml_scalar(acc)
+                pending = None
+            else:
+                pending = (m, key, acc)
+            continue
+        body = line.split("#", 1)[0].rstrip()
+        if not body.strip() or body.strip() in ("---", "..."):
+            continue
+        indent = len(body) - len(body.lstrip(" "))
+        key, sep, value = body.strip().partition(":")
+        if not sep or not key or key.startswith(("-", "&", "*", "!")):
+            raise ValueError(f"line {lineno}: not a 'key: value' line: {line!r}")
+        if indent == 0:
+            block = None
+            target = doc
+        elif block is not None:
+            target = block
+        else:
+            raise ValueError(f"line {lineno}: indented line outside a block: {line!r}")
+        value = value.strip()
+        if not value:
+            if indent:
+                raise ValueError(f"line {lineno}: nesting deeper than one level")
+            block = doc[key] = {}
+        elif value.startswith("[") and not value.endswith("]"):
+            pending = (target, key, value)
+        elif value[0] in "{&*!|>":
+            raise ValueError(f"line {lineno}: unsupported YAML value {value!r}")
+        else:
+            target[key] = _yaml_scalar(value)
+    if pending is not None:
+        raise ValueError(f"unterminated list for {pending[1]!r}")
+    return doc
+
+
 def load_camera_calib(path: str) -> CameraCalib:
     """Parse a camera_calibration_parsers-style YAML file (the format of the
-    reference's test calibrations, test/stereobm/test_data/{left,right}.yaml)."""
-    import yaml
-
+    reference's test calibrations, test/stereobm/test_data/{left,right}.yaml)
+    with ``yaml`` where it is installed, else with
+    :func:`parse_camera_info_yaml`."""
     with open(path, "r") as f:
-        doc = yaml.safe_load(f)
+        text = f.read()
+    try:
+        import yaml
+    except ImportError:
+        doc = parse_camera_info_yaml(text)
+    else:
+        doc = yaml.safe_load(text)
     return CameraCalib(
         width=int(doc["image_width"]),
         height=int(doc["image_height"]),

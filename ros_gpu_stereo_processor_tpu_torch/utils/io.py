@@ -7,22 +7,143 @@ stereo topics (include/gpuimageproc/StereoProcessor.h:45-62) — becomes
 datasets (PNG directories / EuRoC layout) paired by timestamp, exact or
 nearest-within-slop; and ``synthetic_stereo_pair``, so the port's tests and
 ``chip_smoke.py`` make identical frames.
+
+Images are read and written with ``imageio`` or ``cv2`` where one is
+installed, else by this module's own PNG codec (:func:`png_decode`,
+:func:`png_encode`: numpy and ``zlib``), so a machine with neither can still
+serve PNG drops and write its outputs.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import struct
+import zlib
 from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
+
+# ---------------------------------------------------------------------------
+# PNG codec (numpy + zlib), the last option of load_image / write_image
+# ---------------------------------------------------------------------------
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+# colour type -> channels: grey, RGB, grey + alpha, RGBA (no palette)
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-row filters (None, Sub, Up, Average, Paeth) of
+    ``raw``: height rows of 1 filter byte + ``stride`` bytes."""
+    rows = raw.reshape(height, stride + 1)
+    out = np.zeros((height, stride), np.uint8)
+    prior = np.zeros(stride, np.int64)
+    for y in range(height):
+        ftype = int(rows[y, 0])
+        line = rows[y, 1:].astype(np.int64)
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:        # Sub: a running sum of each byte lane
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(-1) & 0xFF
+        elif ftype == 2:        # Up
+            cur = (line + prior) & 0xFF
+        elif ftype in (3, 4):   # Average, Paeth: depend on the reconstructed left byte
+            cur = line.copy()
+            up = prior
+            for x in range(stride):
+                a = int(cur[x - bpp]) if x >= bpp else 0
+                b = int(up[x])
+                if ftype == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = int(up[x - bpp]) if x >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                cur[x] = (int(cur[x]) + pred) & 0xFF
+        else:
+            raise ValueError(f"PNG: unknown row filter {ftype}")
+        out[y] = cur
+        prior = cur
+    return out
+
+
+def png_decode(data: bytes) -> np.ndarray:
+    """Decode a PNG: 8- or 16-bit grey, grey + alpha, RGB or RGBA,
+    non-interlaced, any of the five row filters.  Returns (H, W) or
+    (H, W, C) uint8/uint16.  Raises ``ValueError`` on anything else, a bad
+    CRC or a truncated file."""
+    if data[:8] != _PNG_SIG:
+        raise ValueError("not a PNG file")
+    pos, ihdr, idat, ended = 8, None, [], False
+    while pos + 8 <= len(data):
+        length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if len(body) != length or len(crc) != 4:
+            raise ValueError("PNG: truncated chunk")
+        if zlib.crc32(ctype + body) != struct.unpack(">I", crc)[0]:
+            raise ValueError(f"PNG: bad CRC in chunk {ctype!r}")
+        pos += 12 + length
+        if ctype == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"IDAT":
+            idat.append(body)
+        elif ctype == b"IEND":
+            ended = True
+            break
+    if ihdr is None or not ended:
+        raise ValueError("PNG: missing IHDR or IEND (truncated file?)")
+    width, height, depth, color, comp, filt, interlace = ihdr
+    if color not in _PNG_CHANNELS or depth not in (8, 16) or comp or filt or interlace:
+        raise ValueError(f"PNG: unsupported layout (colour type {color}, depth {depth}, "
+                         f"interlace {interlace}); only 8/16-bit grey, grey+alpha, RGB "
+                         "and RGBA, non-interlaced")
+    channels = _PNG_CHANNELS[color]
+    bpp = channels * depth // 8
+    stride = width * bpp
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != height * (stride + 1):
+        raise ValueError("PNG: image data of the wrong size")
+    px = _unfilter(raw, height, stride, bpp)
+    if depth == 16:
+        px = px.reshape(height, stride // 2, 2).view(">u2")[..., 0].astype(np.uint16)
+    img = px.reshape(height, width, channels)
+    return img[..., 0] if channels == 1 else img
+
+
+def png_encode(img: np.ndarray) -> bytes:
+    """Encode (H, W) or (H, W, C ∈ {1, 2, 3, 4}) uint8/uint16 as a PNG:
+    no row filter, one zlib stream."""
+    a = np.asarray(img)
+    if a.dtype not in (np.uint8, np.uint16) or a.ndim not in (2, 3):
+        raise ValueError(f"png_encode: needs (H, W[, C]) uint8 or uint16, got "
+                         f"{a.shape} {a.dtype}")
+    if a.ndim == 2:
+        a = a[..., None]
+    height, width, channels = a.shape
+    color = {1: 0, 3: 2, 2: 4, 4: 6}.get(channels)
+    if color is None:
+        raise ValueError(f"png_encode: {channels} channels")
+    depth = 8 * a.dtype.itemsize
+    px = np.ascontiguousarray(a.astype(">u2") if depth == 16 else a).view(np.uint8)
+    rows = np.concatenate([np.zeros((height, 1), np.uint8), px.reshape(height, -1)], axis=1)
+
+    def chunk(ctype: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + ctype + body
+                + struct.pack(">I", zlib.crc32(ctype + body)))
+
+    ihdr = struct.pack(">IIBBBBB", width, height, depth, color, 0, 0, 0)
+    return (_PNG_SIG + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
 
 
 def load_image(path: str) -> np.ndarray:
     """Load an image file to a numpy array (uint8/uint16).
 
-    Color images are returned RGB.  Reads with ``imageio`` or, failing
-    that, ``cv2``; raises ``ImportError`` when neither is installed."""
+    Color images are returned RGB.  Reads with ``imageio``, else ``cv2``,
+    else (a ``.png`` only) with :func:`png_decode`."""
     try:
         import imageio.v3 as iio
     except ImportError:
@@ -32,19 +153,26 @@ def load_image(path: str) -> np.ndarray:
     try:
         import cv2
     except ImportError:
-        raise ImportError(
-            f"cannot read {path}: load_image needs imageio or cv2, and neither "
-            "is installed") from None
-    img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-    if img is None:
-        raise FileNotFoundError(path)
-    if img.ndim == 3:
-        img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB if img.shape[2] == 3 else cv2.COLOR_BGRA2RGBA)
-    return img
+        cv2 = None
+    if cv2 is not None:
+        img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+        if img is None:
+            raise FileNotFoundError(path)
+        if img.ndim == 3:
+            img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB if img.shape[2] == 3
+                               else cv2.COLOR_BGRA2RGBA)
+        return img
+    if not path.lower().endswith(".png"):
+        raise ImportError(f"cannot read {path}: without imageio or cv2, load_image "
+                          "reads PNG files only")
+    with open(path, "rb") as f:
+        return png_decode(f.read())
 
 
 def write_image(path: str, img: np.ndarray) -> None:
-    """Write a mono image with ``imageio`` or, failing that, ``cv2``."""
+    """Write an image (mono, or RGB / RGBA in that channel order) with
+    ``imageio``, else ``cv2``, else (a ``.png`` only) with
+    :func:`png_encode`."""
     try:
         import imageio.v3 as iio
     except ImportError:
@@ -55,10 +183,20 @@ def write_image(path: str, img: np.ndarray) -> None:
     try:
         import cv2
     except ImportError:
-        raise ImportError(
-            f"cannot write {path}: write_image needs imageio or cv2, and neither "
-            "is installed") from None
-    cv2.imwrite(path, img)
+        cv2 = None
+    if cv2 is not None:
+        a = np.asarray(img)
+        if a.ndim == 3 and a.shape[2] in (3, 4):
+            a = cv2.cvtColor(a, cv2.COLOR_RGB2BGR if a.shape[2] == 3 else cv2.COLOR_RGBA2BGRA)
+        if not cv2.imwrite(path, a):
+            raise OSError(f"cv2 could not write {path}")
+        return
+    if not path.lower().endswith(".png"):
+        raise ImportError(f"cannot write {path}: without imageio or cv2, write_image "
+                          "writes PNG files only")
+    data = png_encode(img)
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -112,8 +112,14 @@ def test_convert_exact(src, dst):
 
 
 def test_bayer_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcolor.convert(_t(_IMG["mono8"]), "bayer_rggb8", "rgb8")
+    """The Bayer conversion that used to raise (the debayer was not ported)
+    now equals the JAX package's, exactly; tests/test_torch_color_bayer.py
+    covers every phase, dtype and target."""
+    img = _IMG["mono8"]
+    want = np.asarray(jcolor.convert(jnp.asarray(img), "bayer_rggb8", "rgb8"))
+    got = tcolor.convert(_t(img), "bayer_rggb8", "rgb8").numpy()
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
 
 
 # ---------------------------------------------------------------------------

@@ -210,10 +210,14 @@ def test_default_device_is_the_card(jmodel):
 
 
 def test_unported_paths_raise(jmodel):
+    """The two paths that raised before they were ported, a Bayer encoding
+    and the bilateral filter, now run and equal the JAX pipeline."""
     left, right = _frame()
+    jo = J.Outputs.of("disparity")
     out = T.Outputs.of("disparity")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(jmodel).process(left, right, out, encoding="bayer_rggb8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(jmodel, JCFG.replace(bilateral=JBilateral(enabled=True))).process(
-            left, right, out)
+    for cfg, enc in ((JCFG, "bayer_rggb8"),
+                     (JCFG.replace(bilateral=JBilateral(enabled=True)), "mono8")):
+        want = J.StereoPipeline(jmodel, cfg, use_pallas=False).process(
+            left, right, jo, encoding=enc).fetch()
+        got = _port(jmodel, cfg).process(left, right, out, encoding=enc).fetch()
+        _assert_outputs_equal(got, want)
