@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's stereo pipeline, SLAM engine, serve daemon and
-command line once on a CUDA card.
+"""Drive the PyTorch port's stereo pipeline, SLAM engine, multi-device and
+multi-process paths, serve daemon and command line once on a CUDA card.
 
     python3 chip_smoke.py
 
@@ -51,7 +51,15 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      K5 ×3, K6 per band) and one ``lr_check`` frame (K2 twice per band)
      against the CPU mesh run.  The comparison: disparity, validity,
      ``disparity_vis`` and the images exact, ``pointcloud_xyz`` with equal
-     NaN positions and rtol 1e-5, ``pointcloud_rgb`` bitwise;
+     NaN positions and rtol 1e-5, ``pointcloud_rgb`` bitwise.  Then
+     disparity slabs (``shard_mode="disp"``), BM defaults, at 64
+     disparities over 4 slabs and 128 over 8 (BASELINE config 3), each on
+     entries of ``cuda:0``: 6 frames, each launching K1 twice per band, K7
+     once per band and the band label rounds, never K2 or K3; 2 compared
+     with the CPU slab run of the same mesh, frame 0 with speckle off
+     against the single-device K2 pipeline on the card (every output
+     exact), device launches and busy share per frame by ``torch.profiler``
+     over 3;
   5. runs the SLAM engine, ``StereoSlam`` on the card with the default
      ``PipelineConfig`` (BM) and ``SlamConfig``, over the port's planar
      synthetic sequence (utils/synth.py, rendered with numpy while the
@@ -65,8 +73,27 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      launches and busy share per SLAM frame from ``torch.profiler`` over 5
      frames, and a 20-frame ``async_mapping=True`` run against the
      synchronous one (the same frame count, keyframes within 1, final pose
-     within 0.05 m);
-  6. runs the serving paths at 752×480 with the EuRoC-like calibration,
+     within 0.05 m).  The same 60 frames on a ``("kf",)`` mesh of 2 entries
+     of ``cuda:0`` (the windowed BA landmark-sharded; K1, K2, K3 once a
+     frame) and on a (kf, rows) 2 × 4 mesh (the pipeline by 4 row bands:
+     K1, K2 and K7 four times a frame, never K3): ATE under 0.1 m after
+     ``optimize_global``, every frame's position within 1e-4 m of the
+     single-device run, BA ms per keyframe;
+  6. runs the multi-process worker (parallel/multihost.py) at 752×480, BM
+     defaults, as 2 processes × 2 bands on ``cuda:0`` over gloo: ``DENSE``
+     (row-band matcher and speckle filter, fed host-locally through the
+     native ring) and ``PIPE`` (the whole pipeline on the process mesh)
+     equal across the ranks and to the one-process 4-entry mesh on
+     ``cuda:0``, ``BA`` (the sharded BA over a 4-entry ``kf`` mesh) equal
+     across the ranks and within rtol 1e-3 of one process, each rank's K1,
+     K2, K7 and band label rounds launched; then ``measure_scaling`` on 1,
+     2 and 4 entries of ``cuda:0`` (row bands with speckle, and slabs;
+     ``wall_overhead_vs_1dev`` is the number to read there, since entries
+     on one card add no hardware) and ``dryrun_multichip(4, ["cuda:0"] *
+     4)`` (the full 752×480 pipeline by bands with speckle and bilateral,
+     the band matcher, SGM, remap and slabs against their twins, the
+     sharded BA and SLAM on a (kf, rows) mesh);
+  7. runs the serving paths at 752×480 with the EuRoC-like calibration,
      each frame launching K1, K2 and K3 and no other kernel:
        * Bayer input: BM defaults on ``bayer_grbg8`` frames (the synthetic
          pairs' planes as the mosaic), ``Outputs.all()``, 6 frames, 2
@@ -95,7 +122,7 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
        * the command line, in subprocesses: ``info``, then ``run --euroc``
          on a 5-frame EuRoC directory whose frame 0 is the served frame 0:
          exit 0 and that frame's disparity equal to the served one;
-  7. prints the seconds of each phase, one JSON line per path with its
+  8. prints the seconds of each phase, one JSON line per path with its
      frame times, one JSON line with each kernel's launches, error, times
      (events and device) and bound, and as its last line
      ``{"ok": true, "device": {...}}``.
@@ -146,10 +173,17 @@ SERVE_RECONF_AT = 10    # reconfigure.json dropped before this frame
 SERVE_CHECKED = (0, 10, 19)
 SERVE_RANGE = 32        # the num_disparities it sets (from 64)
 CLI_FRAMES = 5
+SLAB_FRAMES = 6     # each slab path: 1 warm-up + 5 timed
+SLAB_COMPARED = 2
+SLAM_MESH_POSE_ATOL = 1e-4   # m: the sharded BA sums its blocks in another order
+MULTIHOST_FPS_ITERS = 5
+MULTIHOST_TIMEOUT_S = 300
 BANDS = 4
+SLABS = ((64, BANDS), (128, 8))   # (disparities, slabs): BM defaults; BASELINE config 3
 BAND_ROWS = 134     # a mesh band's launch: 480 / BANDS rows and 2 x 7 halo rows
 KERNEL_REPS = 20
 PLAIN_REPS = 3
+PROFILER_WINDOWS = 8   # windows tried when the profiler drops a window's events
 H, W = 480, 752
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory and
@@ -226,12 +260,12 @@ def device_rows(torch, fn, reps, least=0):
     memsets, copies) in a ``torch.profiler`` window over ``reps`` runs of
     ``fn()``.  The profiler now and then drops a window's events: a window
     with no device time, or with fewer than ``least`` device events per run,
-    is tried twice more, then the phase fails."""
+    is tried again, up to PROFILER_WINDOWS windows, then the phase fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(PROFILER_WINDOWS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -241,7 +275,7 @@ def device_rows(torch, fn, reps, least=0):
         if rows and sum(c for _, c, _ in rows) >= least * reps:
             return rows
     raise AssertionError(f"the profiler recorded no device time, or fewer than {least} "
-                         f"device events per run, in three windows")
+                         f"device events per run, in {PROFILER_WINDOWS} windows")
 
 
 def device_cost(torch, fn, reps, calls=1, launches=0):
@@ -627,15 +661,15 @@ def same_slam_frame(torch, features, got, want, label, keypoints=True):
 
 def slam_profile(torch, timing, port, model, frames, dev, log_dir):
     """Device launches and busy ms per SLAM frame: ``torch.profiler`` over
-    SLAM_PROFILED synchronous steps after 10 warm frames (a later window if
-    the profiler recorded no device time).  Returns (launches, busy ms, wall
+    SLAM_PROFILED synchronous steps after 10 warm frames (the next window,
+    while frames last, if the profiler recorded no device time).  Returns (launches, busy ms, wall
     ms) per frame."""
     from torch.profiler import ProfilerActivity, profile
 
     slam = port.StereoSlam(model, device=dev)
     for left, right, stamp in frames[:10]:
         slam.step(left, right, stamp)
-    for start in (10, 10 + SLAM_PROFILED, 10 + 2 * SLAM_PROFILED):
+    for start in range(10, len(frames) - SLAM_PROFILED + 1, SLAM_PROFILED):
         window = frames[start:start + SLAM_PROFILED]
         torch.cuda.synchronize()
         ctx = (timing.trace(log_dir) if log_dir else
@@ -651,7 +685,7 @@ def slam_profile(torch, timing, port, model, frames, dev, log_dir):
         if rows:
             break
     else:
-        raise AssertionError("the profiler recorded no device time in three SLAM windows")
+        raise AssertionError("the profiler recorded no device time in any SLAM window")
     slam.pipeline.senders.shutdown()
     n = len(window)
     busy = sum(r[2] for r in rows)
@@ -698,6 +732,7 @@ def run_slam(torch, port, _build, features, timing, evaluate, calib, frames, gt,
         raise AssertionError(f"SLAM: frames not tracked: "
                              f"{[k for k, i in enumerate(infos) if not i['tracked']][1:]}")
     stages = slam.timer.as_dict()
+    positions = np.stack(slam.traj_t)
     ate_before = evaluate.ate_rmse(slam.trajectory(), gt)
     t1 = time.perf_counter()
     closures = slam.optimize_global()
@@ -759,16 +794,16 @@ def run_slam(torch, port, _build, features, timing, evaluate, calib, frames, gt,
     }
     log(f"SLAM e2e over {len(steady)} frames: median {line['e2e_median_ms']:.3f} ms/frame, "
         f"p75 {line['e2e_p75_ms']:.3f} ms, BA {line['ba_ms_per_keyframe']:.3f} ms per keyframe")
-    return line, launches
+    return line, launches, positions
 
 
 def profile_steps(torch, step, n):
     """Device launches, busy ms and wall ms per step: ``torch.profiler`` over
-    ``n`` synchronous calls of ``step(i)`` (tried twice more if the profiler
-    recorded no device time)."""
+    ``n`` synchronous calls of ``step(i)`` (up to PROFILER_WINDOWS windows
+    while the profiler records no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(PROFILER_WINDOWS):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -781,7 +816,7 @@ def profile_steps(torch, step, n):
         if rows:
             busy = sum(r[2] for r in rows)
             return sum(r[1] for r in rows) / n, busy / n, wall_ms / n, rows
-    raise AssertionError("the profiler recorded no device time in three windows")
+    raise AssertionError(f"the profiler recorded no device time in {PROFILER_WINDOWS} windows")
 
 
 def check_bayer(torch, color, port, frames, dev):
@@ -906,6 +941,233 @@ def run_bilateral_mesh(torch, _build, port, new_pipe, make_mesh, frames, outputs
         compare_outputs(got[i], one.process(*frames[i], outputs).fetch(),
                         f"bilateral mesh frame {i}, speckle off, against one device")
     return launches
+
+
+def run_slab(torch, _build, port, new_pipe, make_mesh, frames, outputs, kern, dev):
+    """Disparity slabs (``shard_mode="disp"``) for each (disparities, slabs)
+    of SLABS over ``make_mesh(slabs, devices=[dev] * slabs)``, BM defaults
+    otherwise: SLAB_FRAMES frames (K1 twice per band, K7 once per band, the
+    band label rounds, never K2 or K3), the first SLAB_COMPARED against the
+    CPU slab run of the same mesh, frame 0 with speckle off against the
+    single-device K2 pipeline on the card (every output exact), and a
+    profiler window.  Returns (JSON lines, launches by label)."""
+    lines, launches = [], {}
+    sframes = frames[:SLAB_FRAMES]
+    for nd, n in SLABS:
+        label = f"slab {nd}/{n}"
+        cfg = port.PipelineConfig(stereobm=port.StereoBMConfig(num_disparities=nd))
+        gpipe = new_pipe(config=cfg, mesh=make_mesh(n, devices=[dev] * n), shard_mode="disp")
+        cpipe = new_pipe(config=cfg, mesh=make_mesh(n, devices=["cpu"] * n), shard_mode="disp")
+        per_frame = {"K1": (kern["K1"], 2 * n), "K2": (kern["K2"], 0), "K3": (kern["K3"], 0),
+                     "K7": (kern["K7"], n), "BL": (kern["BL"], None)}
+        ms, got, launches[label] = drive(torch, _build, gpipe, sframes, outputs, per_frame,
+                                         SLAB_COMPARED)
+        log(f"{label} launches over {len(sframes)} frames: {launches[label]}")
+        for i in range(SLAB_COMPARED):
+            compare_outputs(got[i], cpipe.process(*sframes[i], outputs).fetch(),
+                            f"{label} frame {i}")
+        off = cfg.replace(speckle=port.SpeckleConfig(max_speckle_size=0))
+        compare_outputs(
+            new_pipe(config=off, mesh=make_mesh(n, devices=[dev] * n),
+                     shard_mode="disp").process(*frames[0], outputs).fetch(),
+            new_pipe(config=off, device=dev).process(*frames[0], outputs).fetch(),
+            f"{label} frame 0, speckle off, against the single-device K2 pipeline")
+        n_prof = min(3, len(sframes) - 1)
+        n_launch, busy, wall, rows = profile_steps(
+            torch, lambda i: gpipe.process(*sframes[1 + i], outputs).block_until_ready(),
+            n_prof)
+        log(f"profile {label} over {n_prof} frames: wall {wall:.3f} ms/frame, device busy "
+            f"{busy:.3f} ms/frame ({100 * busy / wall:.1f} %), {n_launch:.0f} kernels and "
+            f"copies/frame")
+        for key, count, dms in sorted(rows, key=lambda r: -r[2])[:8]:
+            log(f"  {dms / n_prof:8.4f} ms/frame  {count / n_prof:6.1f}/frame  {key[:90]}")
+        lines.append({**summary(f"slab_{nd}_{n}", ms), "device_launches_per_frame": n_launch,
+                      "device_busy_ms_per_frame": busy, "device_busy_share": busy / wall,
+                      "profiled_wall_ms_per_frame": wall})
+    return lines, launches
+
+
+def run_slam_meshes(torch, port, _build, evaluate, calib, make_mesh, frames, gt, dev,
+                    kernels, one_traj):
+    """The SLAM cell on a ``("kf",)`` mesh of 2 entries of ``dev`` (the BA
+    landmark-sharded, the pipeline on one device: K1, K2, K3 once a frame)
+    and on a (kf, rows) 2 × 4 mesh (the pipeline by 4 row bands: K1, K2 and
+    K7 four times a frame, the band label rounds, no K3): ``run_stream(depth=2)``
+    over every frame, counts set to 0 just before and read just after; the
+    ATE gate after ``optimize_global``, and each frame's position within
+    SLAM_MESH_POSE_ATOL of the single-device run's (``one_traj``).  Returns
+    (JSON lines, launches by label)."""
+    model = planar_model(calib)
+    n = len(frames)
+    lines, launches = [], {}
+    for label, mesh, want in (
+            ("slam kf", make_mesh(2, ("kf",), devices=[dev] * 2),
+             {"K1": n, "K2": n, "K3": n, "K7": 0, "BL": 0}),
+            ("slam kf rows", make_mesh(8, ("kf", "rows"), shape=(2, BANDS),
+                                       devices=[dev] * 2 * BANDS),
+             {"K1": BANDS * n, "K2": BANDS * n, "K3": 0, "K7": BANDS * n, "BL": None})):
+        slam = port.StereoSlam(model, mesh=mesh)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        per_frame_ms, infos = [], []
+        last = time.perf_counter()
+        for info in slam.run_stream(iter(frames), depth=2):
+            now = time.perf_counter()
+            per_frame_ms.append((now - last) * 1e3)
+            last = now
+            infos.append(info)
+        torch.cuda.synchronize()
+        launches[label] = {k: kernels[k].launches for k in want}
+        log(f"{label} launches over {n} frames: {launches[label]}")
+        for k, w in want.items():
+            got = launches[label][k]
+            if (got < n) if w is None else (got != w):
+                raise AssertionError(f"{label}: {k} launched {got} times, not "
+                                     f"{'at least once a frame' if w is None else w}")
+        if len(infos) != n or not all(i["tracked"] for i in infos[1:]):
+            raise AssertionError(f"{label}: frames not tracked")
+        traj = np.stack(slam.traj_t)
+        pose_diff = float(np.abs(traj - one_traj).max())
+        stages = slam.timer.as_dict()
+        closures = slam.optimize_global()
+        ate = evaluate.ate_rmse(slam.trajectory(), gt)
+        log(f"{label}: {len(slam.store)} keyframes, {closures} loop closures, ATE {ate:.5f} m "
+            f"after optimize_global, positions within {pose_diff:.3e} m of the single-device "
+            f"run, BA {stages['ba']['mean_ms']:.3f} ms per keyframe")
+        if not np.isfinite(ate) or ate >= ATE_GATE_M:
+            raise AssertionError(f"{label}: ATE {ate} m (gate {ATE_GATE_M})")
+        if pose_diff > SLAM_MESH_POSE_ATOL:
+            raise AssertionError(f"{label}: positions {pose_diff} m from the single-device "
+                                 f"run (> {SLAM_MESH_POSE_ATOL})")
+        slam.pipeline.senders.shutdown()
+        steady = per_frame_ms[1:]
+        lines.append({
+            "path": label.replace(" ", "_"), "frames": n, "keyframes": len(slam.store),
+            "e2e_median_ms": statistics.median(steady),
+            "e2e_p75_ms": float(np.percentile(steady, 75)),
+            "ba_ms_per_keyframe": stages["ba"]["mean_ms"], "ba_calls": stages["ba"]["count"],
+            "ate_after_m": ate, "loop_closures": closures,
+            "max_position_diff_vs_one_device_m": pose_diff, "kernel_launches": launches[label]})
+    return lines, launches
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_multihost(torch, multihost, make_mesh, dev):
+    """The multi-process worker at 752×480, BM defaults (64 disparities,
+    block 15, texture 10, speckle 800 / Δ5): 2 processes × 2 bands, both on
+    ``dev``, over gloo (NCCL refuses two ranks on one card); every process
+    stopped before this returns.  Gates: DENSE and PIPE equal across the
+    ranks and to the same checks on a one-process 4-entry mesh on ``dev``,
+    BA equal across the ranks and within rtol 1e-3 of one process, and each
+    rank's launches (its LAUNCHES line, counted from 0 over its run) of K1,
+    K2, K7 and the band label rounds at least 1, of K3 none.  Returns (its
+    JSON line, launches summed over the ranks)."""
+    shape = dict(rows=H, width=W, ndisp=64, block=15, texture=10, speckle_size=800,
+                 speckle_diff=5.0, fps_iters=MULTIHOST_FPS_ITERS)
+    cmd = [sys.executable, "-m", "ros_gpu_stereo_processor_tpu_torch.parallel.multihost",
+           "--init-method", f"tcp://127.0.0.1:{_free_port()}", "--world-size", "2",
+           "--backend", "gloo", "--bands-per-process", "2", "--device", str(dev),
+           "--timeout", "120", "--rows", str(H), "--width", str(W), "--ndisp", "64",
+           "--block", "15", "--texture-threshold", "10", "--speckle-size", "800",
+           "--speckle-diff", "5", "--fps-iters", str(MULTIHOST_FPS_ITERS)]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=root, env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MULTIHOST_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall_s = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        log(f"multihost rank {r} (exit {p.returncode}):\n" + "\n".join(
+            "  " + ln for ln in out.strip().splitlines()[-12:]))
+        if p.returncode != 0:
+            raise AssertionError(f"multihost rank {r} exited {p.returncode}")
+    ref = list(multihost.worker_lines(make_mesh(BANDS, devices=[dev] * BANDS),
+                                      make_mesh(BANDS, ("kf",), devices=[dev] * BANDS),
+                                      **{**shape, "fps_iters": 1}))
+
+    def tagged(text, tag):
+        found = [ln for ln in text.splitlines() if ln.startswith(tag + " ")]
+        if len(found) != 1:
+            raise AssertionError(f"multihost: {len(found)} {tag} lines")
+        return found[0]
+
+    one = "\n".join(ref)
+    for tag in ("BACKEND", "DENSE", "PIPE", "BA"):
+        if tagged(outs[0], tag) != tagged(outs[1], tag):
+            raise AssertionError(f"multihost: {tag} differs between the ranks")
+    for tag in ("DENSE", "PIPE"):
+        if tagged(outs[0], tag) != tagged(one, tag):
+            raise AssertionError(f"multihost: {tag} {tagged(outs[0], tag)} against one "
+                                 f"process's {tagged(one, tag)}")
+    ba = [float(x) for x in tagged(outs[0], "BA").split()[1:]]
+    ba_one = [float(x) for x in tagged(one, "BA").split()[1:]]
+    if not np.allclose(ba, ba_one, rtol=1e-3, atol=0) or not ba[1] < 0.1 * ba[0]:
+        raise AssertionError(f"multihost: BA {ba} against one process's {ba_one}")
+    ranks = [json.loads(tagged(o, "LAUNCHES").split(" ", 1)[1]) for o in outs]
+    launches = {}
+    for k in ("K1", "K2", "K3", "K7", "BL"):
+        per_rank = [c[SOURCES[k][0]] for c in ranks]
+        if (k == "K3" and any(per_rank)) or (k != "K3" and min(per_rank) < 1):
+            raise AssertionError(f"multihost: {k} launched {per_rank} times by the ranks")
+        launches[k] = sum(per_rank)
+    fps = [float(tagged(o, "FPS").split()[1]) for o in outs]
+    log(f"multihost: {tagged(outs[0], 'BACKEND')}; DENSE and PIPE equal across the 2 ranks "
+        f"and to one process ({tagged(one, 'DENSE')}); BA {ba} (one process {ba_one}); "
+        f"fps per rank {fps}; launches over both ranks {launches}")
+    return {"path": "multihost_2proc_gloo", "backend": tagged(outs[0], "BACKEND").split()[1],
+            "dense": tagged(outs[0], "DENSE"), "pipe": tagged(outs[0], "PIPE"),
+            "ba_rms": ba, "fps_per_rank": fps, "fps_iters": MULTIHOST_FPS_ITERS,
+            "wall_s": wall_s, "kernel_launches": launches}, launches
+
+
+def run_scaling(torch, port, _build, kernels, dev):
+    """``measure_scaling`` on 1, 2 and 4 entries of ``dev`` (row bands with
+    the speckle filter, and slabs; one device unsharded beside them), then
+    ``dryrun_multichip(4, [dev] * 4)``; counts set to 0 before each and read
+    after.  Entries on one card add no hardware, so ``efficiency`` means
+    nothing here and ``wall_overhead_vs_1dev`` is the number to read.
+    Returns (JSON lines, launches by label)."""
+    lines, launches = [], {}
+    for mode, speckle in (("rows", 800), ("disp", 0)):
+        label = f"scaling {mode}"
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        out = port.measure_scaling(devices=[dev] * BANDS, device_counts=[1, 2, BANDS],
+                                   mode=mode, max_speckle_size=speckle,
+                                   include_unsharded=True)
+        launches[label] = {k: kern.launches for k, kern in kernels.items()}
+        need = ("K2",) if mode == "rows" else ()
+        for k in need + (("K7", "BL") if speckle else ()):
+            if launches[label][k] < 1:
+                raise AssertionError(f"{label}: {k} never launched")
+        log(f"{label}: " + json.dumps(out))
+        lines.append({"path": label.replace(" ", "_"), **out})
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    dry = port.dryrun_multichip(BANDS, devices=[dev] * BANDS)
+    launches["dryrun"] = {k: kern.launches for k, kern in kernels.items()}
+    for k in ("K1", "K2", "K4", "K5", "K6", "K7", "BL"):
+        if launches["dryrun"][k] < 1:
+            raise AssertionError(f"dryrun: {k} never launched")
+    lines.append({"path": "dryrun_multichip", **dry, "kernel_launches": launches["dryrun"]})
+    return lines, launches
 
 
 def calib_yaml(path, c):
@@ -1093,7 +1355,7 @@ def main() -> int:
         stereobm_kernel,
     )
     from ros_gpu_stereo_processor_tpu_torch.ops import features
-    from ros_gpu_stereo_processor_tpu_torch.parallel import frontend
+    from ros_gpu_stereo_processor_tpu_torch.parallel import frontend, multihost
     from ros_gpu_stereo_processor_tpu_torch.parallel.mesh import make_mesh
     from ros_gpu_stereo_processor_tpu_torch.ops import color
     from ros_gpu_stereo_processor_tpu_torch.utils import calib, evaluate, io, synth, timing
@@ -1369,6 +1631,15 @@ def main() -> int:
                                             per_frame, 1)
             compare_outputs(got[0], cpipe.process(*frame, outputs).fetch(), f"{label} frame 0")
 
+    # -- disparity slabs --------------------------------------------------------
+    with phase("slab", seconds):
+        lines, more = run_slab(torch, _build, port, new_pipe, make_mesh, frames, outputs,
+                               {"K1": k1, "K2": stereobm_kernel.KERNEL,
+                                "K3": speckle_kernel.KERNEL, "K7": speckle_kernel.MAXPROP,
+                                "BL": speckle_kernel.BAND_LABELS}, dev)
+        e2e += lines
+        launches.update(more)
+
     # -- Bayer input, the bilateral tier, bilateral by band ------------------
     bm_kernels = {"K1": (k1, 2), "K2": (stereobm_kernel.KERNEL, 1),
                   "K3": (speckle_kernel.KERNEL, 1)}
@@ -1397,9 +1668,24 @@ def main() -> int:
                "BL": speckle_kernel.BAND_LABELS}
     with phase("SLAM e2e", seconds):
         sframes, gt = slam_frames()
-        line, launches["slam"] = run_slam(torch, port, _build, features, timing, evaluate,
-                                          calib, sframes, gt, dev, kernels, args.profile)
+        line, launches["slam"], positions = run_slam(
+            torch, port, _build, features, timing, evaluate, calib, sframes, gt, dev,
+            kernels, args.profile)
         e2e.append(line)
+    with phase("SLAM meshes", seconds):
+        lines, more = run_slam_meshes(torch, port, _build, evaluate, calib, make_mesh,
+                                      sframes, gt, dev, kernels, positions)
+        e2e += lines
+        launches.update(more)
+
+    # -- the multi-process worker, the scaling harness and the dry run ---------
+    with phase("multihost", seconds):
+        line, launches["multihost"] = run_multihost(torch, multihost, make_mesh, dev)
+        e2e.append(line)
+    with phase("scaling", seconds):
+        lines, more = run_scaling(torch, port, _build, kernels, dev)
+        e2e += lines
+        launches.update(more)
 
     # -- the serve daemon and the CLI -------------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:

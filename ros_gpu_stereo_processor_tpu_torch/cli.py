@@ -190,14 +190,10 @@ def cmd_run(args) -> int:
     from ros_gpu_stereo_processor_tpu_torch.ops import _build
     from ros_gpu_stereo_processor_tpu_torch.utils.io import StereoFrame, write_image
 
-    if args.shard_mode == "disp":
-        raise NotImplementedError(
-            "disparity-slab sharding (--shard-mode disp) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 13)")
     model = _load_model(args)
     mesh = _mesh_from_args(args)
     pipe = StereoPipeline(model, _bm_config(args), device=None if mesh else args.device,
-                          mesh=mesh)
+                          mesh=mesh, shard_mode=args.shard_mode)
     outputs = Outputs.of(*args.outputs.split(","))
     os.makedirs(args.out_dir, exist_ok=True)
     if args.euroc:

@@ -118,16 +118,13 @@ def ba_normal_terms(p: BAProblem, huber_px: float = 3.0):
     return U, V, Wb, b_p, b_l
 
 
-def schur_solve(U, V, Wb, b_p, b_l, damping: float = 1e-4,
-                fix_first_pose: bool = True,
-                point_prior: torch.Tensor | None = None):
-    """Marginalise landmarks, solve the reduced camera system, back-substitute.
-
-    ``point_prior`` (N,): extra diagonal weight per landmark — large values
-    freeze landmarks (gauge/scale anchoring, e.g. stereo-triangulated points).
-    Returns (dxi (M,6), dX (N,3))."""
-    M = U.shape[0]
-    dev, dt = U.device, U.dtype
+def eliminate_landmarks(V, Wb, b_p, b_l, damping: float = 1e-4,
+                        point_prior: torch.Tensor | None = None):
+    """The landmark block's share of the reduced camera system: (V⁻¹ of the
+    damped landmark blocks (N,3,3), −Σ_n W V⁻¹ Wᵀ (M,M,6,6), b_p − Σ_n
+    W V⁻¹ b_l (M,6)).  The distributed BA sums the last two over landmark
+    blocks (parallel/dist_ba.py)."""
+    dev, dt = V.device, V.dtype
     eye3 = torch.eye(3, dtype=dt, device=dev)
     # damping relative to each block's scale: an under-observed landmark has
     # a rank-deficient V whose near-zero eigenvalue must be lifted *relative*
@@ -139,12 +136,20 @@ def schur_solve(U, V, Wb, b_p, b_l, damping: float = 1e-4,
     Vinv = torch.linalg.inv_ex(Vd, check_errors=False).inverse   # (N,3,3)
 
     WVinv = torch.einsum("mnij,njk->mnik", Wb, Vinv)              # (M,N,6,3)
-    # S_{mk} = δ_mk U_m − Σ_n WVinv_{mn} W_{kn}ᵀ
-    S = -torch.einsum("mnik,lnjk->mlij", WVinv, Wb)               # (M,M,6,6)
+    S_off = -torch.einsum("mnik,lnjk->mlij", WVinv, Wb)           # (M,M,6,6)
+    rhs = b_p - torch.einsum("mnik,nk->mi", WVinv, b_l)           # (M,6)
+    return Vinv, S_off, rhs
+
+
+def solve_camera_system(S_off, U, rhs, damping: float = 1e-4,
+                        fix_first_pose: bool = True) -> torch.Tensor:
+    """dξ (M,6) of the reduced camera system
+    S_{mk} = δ_mk (U_m + damping·I) + S_off_{mk}."""
+    M = U.shape[0]
+    dev, dt = U.device, U.dtype
+    S = S_off.clone()
     m = torch.arange(M, device=dev)
     S[m, m] = S[m, m] + (U + damping * torch.eye(6, dtype=dt, device=dev)[None])
-    rhs = b_p - torch.einsum("mnik,nk->mi", WVinv, b_l)           # (M,6)
-
     Sd = S.permute(0, 2, 1, 3).reshape(6 * M, 6 * M)
     rhsd = rhs.reshape(-1)
     if fix_first_pose:
@@ -152,23 +157,38 @@ def schur_solve(U, V, Wb, b_p, b_l, damping: float = 1e-4,
         mask = (torch.arange(6 * M, device=dev) >= 6).to(dt)
         Sd = Sd * mask[:, None] * mask[None, :] + torch.diag(1.0 - mask)
         rhsd = rhsd * mask
-    dxi = -torch.linalg.solve_ex(Sd, rhsd, check_errors=False).result.reshape(M, 6)
+    return -torch.linalg.solve_ex(Sd, rhsd, check_errors=False).result.reshape(M, 6)
 
-    # back-substitute landmarks: dX = −V⁻¹ (b_l + Σ_m W_{mn}ᵀ dξ_m)
+
+def back_substitute(Wb, Vinv, b_l, dxi) -> torch.Tensor:
+    """dX = −V⁻¹ (b_l + Σ_m W_{mn}ᵀ dξ_m), (N,3)."""
     WtD = torch.einsum("mnij,mi->nj", Wb, dxi)                    # (N,3)
-    dX = -torch.einsum("nij,nj->ni", Vinv, b_l + WtD)
-    return dxi, dX
+    return -torch.einsum("nij,nj->ni", Vinv, b_l + WtD)
+
+
+def schur_solve(U, V, Wb, b_p, b_l, damping: float = 1e-4,
+                fix_first_pose: bool = True,
+                point_prior: torch.Tensor | None = None):
+    """Marginalise landmarks, solve the reduced camera system, back-substitute.
+
+    ``point_prior`` (N,): extra diagonal weight per landmark — large values
+    freeze landmarks (gauge/scale anchoring, e.g. stereo-triangulated points).
+    Returns (dxi (M,6), dX (N,3))."""
+    Vinv, S_off, rhs = eliminate_landmarks(V, Wb, b_p, b_l, damping, point_prior)
+    dxi = solve_camera_system(S_off, U, rhs, damping, fix_first_pose)
+    return dxi, back_substitute(Wb, Vinv, b_l, dxi)
+
+
+def clip_rows(v: torch.Tensor, max_norm: float = 0.5) -> torch.Tensor:
+    """Scale down each row of ``v`` whose norm exceeds ``max_norm``."""
+    n = torch.linalg.norm(v, dim=-1, keepdim=True)
+    return v * torch.clamp(rdiv(max_norm, torch.clamp(n, min=1e-12)), max=1.0)
 
 
 def clip_step(dxi: torch.Tensor, dX: torch.Tensor, max_norm: float = 0.5):
     """Trust-region guard: scale down any per-pose/per-point update whose
     norm exceeds ``max_norm``."""
-
-    def clip(v):
-        n = torch.linalg.norm(v, dim=-1, keepdim=True)
-        return v * torch.clamp(rdiv(max_norm, torch.clamp(n, min=1e-12)), max=1.0)
-
-    return clip(dxi), clip(dX)
+    return clip_rows(dxi, max_norm), clip_rows(dX, max_norm)
 
 
 def apply_update(p: BAProblem, dxi: torch.Tensor, dX: torch.Tensor) -> BAProblem:

@@ -25,14 +25,16 @@ The optional bilateral post-filter (``config.bilateral.enabled``) refines
 the disparity after the speckle filter, guided by the left rectified image
 (ops/bilateral.py, plain torch).
 
-With ``mesh`` (a band mesh of parallel/mesh.py) the frame runs the row-band
-frontend of parallel/frontend.py: rectification, matching, the speckle
-filter and the bilateral filter by band, as the JAX pipeline's ``mesh``
-branch does (SGM there is always the 4-path row-band SGM, whatever
-``sgm_paths`` says).  The images, the disparity and every output are
-assembled whole on the mesh's first device, which changes no value.  Slab
-mode (``shard_mode="disp"``) is not ported yet (ROADMAP.md, Queue 1 item 13)
-and raises ``NotImplementedError``.
+With ``mesh`` (parallel/mesh.py, or a process mesh of parallel/multihost.py)
+the frame runs the sharded frontend of parallel/frontend.py on the line
+``mesh.along(shard_axis)``: rectification, matching, the speckle filter and
+the bilateral filter by row band, as the JAX pipeline's ``mesh`` branch
+does (SGM there is always the 4-path row-band SGM, whatever ``sgm_paths``
+says).  With ``shard_mode="disp"`` the block matcher runs by disparity
+slab over the same line (the JAX pipeline uses its shard axis as the slab
+axis too), and the whole disparity is then split into bands for the
+row-band speckle filter.  The images, the disparity and every output are
+assembled whole on the line's first device, which changes no value.
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ from ros_gpu_stereo_processor_tpu_torch.ops import sgm_kernel
 from ros_gpu_stereo_processor_tpu_torch.ops import speckle as speckle_ops
 from ros_gpu_stereo_processor_tpu_torch.ops import stereobm_kernel
 from ros_gpu_stereo_processor_tpu_torch.parallel import frontend as par
-from ros_gpu_stereo_processor_tpu_torch.parallel.mesh import BandMesh
+from ros_gpu_stereo_processor_tpu_torch.parallel.mesh import Mesh
 from ros_gpu_stereo_processor_tpu_torch.utils import msgs as msgs_mod
 from ros_gpu_stereo_processor_tpu_torch.utils.calib import StereoCameraModel
 from ros_gpu_stereo_processor_tpu_torch.utils.device import require_device
@@ -92,15 +94,16 @@ def _pipeline_step(
     bm: StereoBMConfig,
     speckle: SpeckleConfig,
     bilateral: BilateralConfig = BilateralConfig(),
-    mesh: Optional[BandMesh] = None,
+    mesh: Optional[Mesh] = None,
     band_maps: Optional[List[torch.Tensor]] = None,
     shard_axis: str = "rows",
     shard_mode: str = "rows",
 ) -> Dict[str, torch.Tensor]:
     """One frame step: the stage DAG of imageCb (SURVEY.md §3.1), running
-    only the stages ``outputs`` needs.  With ``mesh``, ``band_maps`` holds
-    each band's rows of ``rect_maps`` on its device, and the rectified
-    images and the disparity are band lists until assembled."""
+    only the stages ``outputs`` needs.  With ``mesh`` (the 1-D line along
+    ``shard_axis``), ``band_maps`` holds each band's rows of ``rect_maps``
+    on its device, and the rectified images and the disparity are band
+    lists until assembled."""
     res: Dict[str, torch.Tensor] = {}
 
     def whole(x):
@@ -230,17 +233,17 @@ def _pipeline_step(
 
 
 def _mesh_disparity(rect_mono, bm: StereoBMConfig, speckle: SpeckleConfig,
-                    mesh: BandMesh, shard_axis: str, shard_mode: str):
-    """The matcher and the speckle filter by band; (disparity, valid)
-    assembled whole on the mesh's first device."""
+                    mesh: Mesh, shard_axis: str, shard_mode: str):
+    """The matcher (by band, or by disparity slab) and the speckle filter
+    by band; (disparity, valid) assembled whole on the line's first
+    device."""
     left, right = rect_mono["left"], rect_mono["right"]
     if bm.algorithm == "sgm":
         disp, valid = par.disparity_sgm_row_sharded(
             left, right, bm, mesh, shard_axis, p1=bm.sgm_p1, p2=bm.sgm_p2)
     elif shard_mode == "disp":
-        raise NotImplementedError(
-            "disparity-slab sharding (shard_mode='disp') is not ported yet "
-            "(ROADMAP.md, Queue 1 item 13)")
+        # whole (disparity, valid); the speckle filter splits them into bands
+        disp, valid = par.disparity_slab_sharded(left, right, bm, mesh, shard_axis)
     else:
         disp, valid = par.disparity_row_sharded(left, right, bm, mesh, shard_axis)
     if speckle.enabled:
@@ -252,6 +255,8 @@ def _mesh_disparity(rect_mono, bm: StereoBMConfig, speckle: SpeckleConfig,
             merge_rounds=speckle.boundary_merge_rounds,
             fill_value=float(bm.min_disparity - 1),
         )
+    if isinstance(disp, torch.Tensor):
+        return disp, valid
     return mesh.gather(disp), mesh.gather(valid)
 
 
@@ -282,18 +287,19 @@ class StereoPipeline:
     arrays, :meth:`from_arrays`) and a device, then ``process`` frames with
     any demand flag-set.
 
-    ``device`` defaults to the card.  ``mesh``: a band mesh
-    (``parallel.mesh.make_mesh``) — run every frame by row bands over its
-    ``shard_axis`` (default: its first axis); the pipeline's device is then
-    the mesh's first device.  ``shard_mode``: ``"rows"``, or ``"disp"``
-    (disparity slabs, not ported yet); SGM configs always row-shard."""
+    ``device`` defaults to the card.  ``mesh``: a mesh
+    (``parallel.mesh.make_mesh``, ``parallel.multihost.global_mesh``) — run
+    every frame sharded over its ``shard_axis`` (default: its first axis);
+    the pipeline's device is then the first device of the line along that
+    axis.  ``shard_mode``: ``"rows"``, or ``"disp"`` (the block matcher by
+    disparity slab); SGM configs always row-shard."""
 
     def __init__(
         self,
         model: StereoCameraModel,
         config: PipelineConfig = PipelineConfig(),
         device: torch.device | str | None = None,
-        mesh: Optional[BandMesh] = None,
+        mesh: Optional[Mesh] = None,
         shard_axis: Optional[str] = None,
         shard_mode: str = "rows",
     ):
@@ -314,7 +320,7 @@ class StereoPipeline:
         baseline: float,
         config: PipelineConfig = PipelineConfig(),
         device: torch.device | str | None = None,
-        mesh: Optional[BandMesh] = None,
+        mesh: Optional[Mesh] = None,
         shard_axis: Optional[str] = None,
         shard_mode: str = "rows",
     ) -> "StereoPipeline":
@@ -336,15 +342,17 @@ class StereoPipeline:
             raise ValueError(f"shard_mode={shard_mode!r} must be 'rows' or 'disp'")
         self.mesh, self.shard_mode = mesh, shard_mode
         self.shard_axis = shard_axis or (mesh.axis_names[0] if mesh is not None else "rows")
+        # the 1-D line the frame is sharded over
+        self._line = None if mesh is None else mesh.along(self.shard_axis)
         if mesh is not None:
-            n = mesh.shape[self.shard_axis]
+            n = self._line.size
             if height % n != 0:
                 raise ValueError(f"image height {height} not divisible by mesh axis "
                                  f"{self.shard_axis}={n}")
-            if device is not None and torch.device(device) != mesh.devices[0]:
+            if device is not None and torch.device(device) != self._line.devices[0]:
                 raise ValueError(f"device {device} is not the mesh's first device "
-                                 f"{mesh.devices[0]}")
-            device = mesh.devices[0]
+                                 f"{self._line.devices[0]}")
+            device = self._line.devices[0]
         self.device = require_device(device)
         self.width, self.height = int(width), int(height)
         self.fx, self.baseline = float(fx), float(baseline)
@@ -354,9 +362,7 @@ class StereoPipeline:
             np.asarray(Q).astype(np.float32)).to(self.device)
         self._band_maps = None
         if mesh is not None:
-            hb = height // mesh.shape[self.shard_axis]
-            self._band_maps = [self._rect_maps[:, i * hb:(i + 1) * hb].to(d).contiguous()
-                               for i, d in enumerate(mesh.devices)]
+            self._band_maps = [m.contiguous() for m in self._line.split(self._rect_maps, 1)]
         self.senders = SenderPool(
             max_workers=max(1, config.publisher_queue_size + 1)
         )
@@ -413,7 +419,7 @@ class StereoPipeline:
             self._rect_maps, self._Q,
             encoding=encoding, outputs=outputs, bm=cfg.stereobm,
             speckle=cfg.speckle, bilateral=cfg.bilateral,
-            mesh=self.mesh, band_maps=self._band_maps,
+            mesh=self._line, band_maps=self._band_maps,
             shard_axis=self.shard_axis, shard_mode=self.shard_mode,
         )
 
@@ -429,7 +435,7 @@ class StereoPipeline:
         ``config.max_in_flight`` frames are already outstanding, in which
         case the oldest is waited for first (bounded pipelining)."""
         out = self._step(left, right, outputs, encoding)
-        devices = [self.device] if self.mesh is None else self.mesh.unique_devices()
+        devices = [self.device] if self.mesh is None else self._line.unique_devices()
         events = []
         for d in devices:
             if d.type == "cuda":

@@ -11,10 +11,11 @@ The port of ``ros_gpu_stereo_processor_tpu/models/slam.py``:
 
 The engine runs on the card (``device="cuda"``, the default; raises without
 CUDA) unless given ``device="cpu"``; each kernel-backed op dispatches on the
-device of its tensors and nothing falls back.  With ``mesh`` (a band mesh
-of parallel/mesh.py with a ``rows`` axis) the dense frontend runs by row
-bands; the JAX package's ``kf`` axis (landmark-sharded BA, dist_ba) is not
-ported yet.
+device of its tensors and nothing falls back.  With ``mesh``
+(parallel/mesh.py) a ``rows`` axis runs the dense frontend by row bands
+over ``mesh.along("rows")``, and a ``kf`` axis runs the windowed BA
+landmark-sharded over ``mesh.along("kf")`` (parallel/dist_ba.py); a
+``(kf, rows)`` mesh runs both, as the JAX engine does.
 
 Threads: under ``run_stream(async_mapping=True)`` the mapping worker
 (track association, BA) and the tracking thread both launch on the
@@ -44,6 +45,7 @@ from ros_gpu_stereo_processor_tpu_torch.models.vo import (
     pnp_gauss_newton,
 )
 from ros_gpu_stereo_processor_tpu_torch.ops import features as feat_ops
+from ros_gpu_stereo_processor_tpu_torch.parallel.dist_ba import bundle_adjust_sharded
 from ros_gpu_stereo_processor_tpu_torch.utils.device import require_device
 from ros_gpu_stereo_processor_tpu_torch.utils.evaluate import Trajectory
 from ros_gpu_stereo_processor_tpu_torch.utils.timing import StageTimer
@@ -274,29 +276,29 @@ class StereoSlam:
         device: torch.device | str | None = None,
     ):
         """``model``: the port's ``StereoCameraModel``.  ``mesh``: optional
-        band mesh (parallel/mesh.py).  A ``rows`` axis runs the DENSE
-        FRONTEND by row bands (StereoPipeline's mesh path; the engine's
-        device is then the mesh's first device); a ``kf`` axis
-        (landmark-sharded BA) raises ``NotImplementedError``."""
+        mesh (parallel/mesh.py).  A ``rows`` axis runs the DENSE FRONTEND by
+        row bands (StereoPipeline's mesh path, on ``mesh.along("rows")``); a
+        ``kf`` axis runs the windowed BA landmark-sharded
+        (parallel/dist_ba.py, on ``mesh.along("kf")``) whenever
+        ``ba_landmarks`` divides into it, else the single-device BA.  With a
+        mesh the engine's device is the mesh's first device."""
         self.model = model
         self.config = config
         self.mesh = mesh
         pipe_mesh = None
+        self._ba_mesh = None
         if mesh is not None:
-            if "kf" in mesh.axis_names:
-                raise NotImplementedError(
-                    "a 'kf' mesh axis (landmark-sharded windowed BA, dist_ba) is not "
-                    "ported yet (ROADMAP.md, Queue 1 item 13)")
             if ("rows" in mesh.axis_names
                     and model.left.calib.height % mesh.shape["rows"] == 0):
-                pipe_mesh = mesh
-        if pipe_mesh is not None:
-            if device is not None and torch.device(device) != pipe_mesh.devices[0]:
+                pipe_mesh = mesh.along("rows")
+            if "kf" in mesh.axis_names:
+                self._ba_mesh = mesh.along("kf")
+            if device is not None and torch.device(device) != mesh.devices[0]:
                 raise ValueError(f"device {device} is not the mesh's first device "
-                                 f"{pipe_mesh.devices[0]}")
-            for d in pipe_mesh.unique_devices():
+                                 f"{mesh.devices[0]}")
+            for d in mesh.unique_devices():
                 require_device(d)
-            self.device = pipe_mesh.devices[0]
+            self.device = mesh.devices[0]
         else:
             self.device = require_device(device)
         self.pipeline = StereoPipeline(
@@ -719,7 +721,11 @@ class StereoSlam:
         lm_valid = np.zeros((N,), np.float32)
         lm_valid[:n_eff] = 1.0
         prior = _f32(cfg.stereo_point_prior * lm_valid, dev)
-        pf, _ = BA.bundle_adjust(p, iters=cfg.ba_iters, point_prior=prior)
+        if self._ba_mesh is not None and N % self._ba_mesh.size == 0:
+            pf, _ = bundle_adjust_sharded(p, self._ba_mesh, iters=cfg.ba_iters,
+                                          point_prior=prior)
+        else:
+            pf, _ = BA.bundle_adjust(p, iters=cfg.ba_iters, point_prior=prior)
 
         # per-landmark reprojection rms at the solution: a landmark that
         # cannot fit the rigid window solve is purged from the map below

@@ -133,29 +133,37 @@ def sad_cost_volume(
     left_f: torch.Tensor,
     right_f: torch.Tensor,
     cfg: StereoBMConfig,
+    d_offset: int = 0,
+    count: int | None = None,
 ) -> torch.Tensor:
-    """(ndisp, H, W) float32 SAD cost volume over prefiltered images.
+    """(count, H, W) float32 SAD cost volume over prefiltered images, for
+    the disparities ``min_disparity + d_offset + [0, count)`` (by default
+    the whole range: (ndisp, H, W)).
 
     cost[d, y, x] = Σ_window |L(y+i, x+j) − R(y+i, x+j−(min_disparity+d))|,
-    +∞ (1e9) where the right window would leave the image.
+    +∞ (1e9) where the right window would leave the image.  A slab
+    (``d_offset``, ``count``) equals those planes of the whole volume.
     """
     H, W = left_f.shape
     nd = cfg.num_disparities
     mind = cfg.min_disparity
     r = cfg.block_radius
+    if count is None:
+        count = nd - d_offset
 
     max_d = mind + nd - 1
     pad_l = max(0, max_d)
     pad_r = max(0, -mind)
     right_p = F.pad(right_f, (pad_l, pad_r))
     # shifted[d] = right_p[:, pad_l − d : pad_l − d + W]
-    starts = torch.arange(pad_l - mind, pad_l - mind - nd, -1,
+    first = mind + d_offset
+    starts = torch.arange(pad_l - first, pad_l - first - count, -1,
                           device=left_f.device)
-    shifted = right_p.unfold(1, W, 1).index_select(1, starts)   # (H, nd, W)
+    shifted = right_p.unfold(1, W, 1).index_select(1, starts)   # (H, count, W)
     diff = (left_f[:, None, :] - shifted).abs().permute(1, 0, 2)
     sad = _box_sum(diff, cfg.block_size)
 
-    d = torch.arange(mind, mind + nd, device=left_f.device)[:, None, None]
+    d = torch.arange(first, first + count, device=left_f.device)[:, None, None]
     col = torch.arange(W, device=left_f.device)[None, None, :]
     # right window must fit: 0 <= x-d-r and x-d+r <= W-1
     valid = (col - d >= r) & (col - d <= W - 1 - r)

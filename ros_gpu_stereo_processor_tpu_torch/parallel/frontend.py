@@ -1,15 +1,17 @@
-"""Row-band frontend: rectification, matching, the speckle filter and the
-bilateral filter by band.
+"""The sharded frontend: rectification, matching, the speckle filter and
+the bilateral filter by row band, and block matching by disparity slab.
 
-The port of the row-band half of
-``ros_gpu_stereo_processor_tpu/parallel/frontend.py``.  An image is split
-into n horizontal bands, band i on device i of a :class:`BandMesh`
-(parallel/mesh.py); each function takes whole (H, ...) tensors or lists of
-bands and returns lists of bands.  Where the JAX version runs ``shard_map``
-with ``ppermute``/``psum``/``all_gather`` over a named mesh axis, the port
-runs a loop over the bands, and the collectives are copies and reductions
-across the band list (:func:`halo_exchange`, :func:`shift_down`,
-:func:`shift_up`, :func:`any_band`, :func:`all_gather`).
+The port of ``ros_gpu_stereo_processor_tpu/parallel/frontend.py``.  Each
+function takes a mesh (parallel/mesh.py, or the process mesh of
+parallel/multihost.py) and the axis to shard over, and runs on the line
+``mesh.along(axis)``.  By row band, an image is split into n horizontal
+bands, band i on the line's entry i; the functions take whole (H, ...)
+tensors or this process's bands and return this process's bands.  Where
+the JAX version runs ``shard_map`` with ``ppermute``/``psum``/``pmin``/
+``all_gather`` over a named mesh axis, the port runs a loop over its parts,
+and the collectives are the mesh's methods (``shift_down``, ``shift_up``,
+``psum``, ``pmin``, ``any``, ``all_gather``; :func:`halo_exchange` is built
+on the shifts).
 
   * :func:`remap_row_sharded`: each band rectifies its own rows with K1 (the
     band's rows of the maps over the replicated source frame).
@@ -19,6 +21,10 @@ across the band list (:func:`halo_exchange`, :func:`shift_down`,
   * :func:`disparity_sgm_row_sharded`: the fused 4-path SGM (K4–K6) per
     band extended by ``block_radius + warmup_rows`` rows: the JAX version's
     tiled approximation, value for value.
+  * :func:`disparity_slab_sharded`: each entry searches nd/n candidates
+    over the whole image (a plain-torch cost slab, as JAX runs XLA's cost
+    volume there), winners combined by a ``pmin`` over packed keys; equal
+    to the single-device matcher.
   * :func:`filter_speckles_row_sharded`: band-local labels, a cross-band
     merge loop, band-local sizing, boundary-record reconciliation and K7,
     the max-propagation of the reconciled sizes.
@@ -29,9 +35,11 @@ across the band list (:func:`halo_exchange`, :func:`shift_down`,
 Each band's prefilter reads the rows its stencil needs from its neighbours
 (edge rows replicated at the image's first and last row, as the whole-image
 prefilter does), so band prefilters and texture sums equal the whole
-image's.  Kernel-backed ops dispatch on the device of their tensors, so a
-CPU mesh runs the plain versions and a CUDA mesh the kernels.  Slab mode
-(``disparity_slab_sharded``) is not ported (ROADMAP.md, Queue 1 item 13).
+image's.  Row offsets and the image's edges are judged by a part's index on
+the line (``Mesh.indices``), so a process that holds only some of the bands
+computes them as one process holding all would.  Kernel-backed ops dispatch
+on the device of their tensors, so a CPU mesh runs the plain versions and a
+CUDA mesh the kernels.
 """
 
 from __future__ import annotations
@@ -48,46 +56,34 @@ from ros_gpu_stereo_processor_tpu_torch.ops import speckle as speckle_ops
 from ros_gpu_stereo_processor_tpu_torch.ops import speckle_kernel
 from ros_gpu_stereo_processor_tpu_torch.ops import stereobm as bm_ops
 from ros_gpu_stereo_processor_tpu_torch.ops import stereobm_kernel
-from ros_gpu_stereo_processor_tpu_torch.parallel.mesh import BandMesh
+from ros_gpu_stereo_processor_tpu_torch.parallel.mesh import Mesh
 
 Bands = List[torch.Tensor]
 
+_BIG_INT = 10**6  # invalid-cost sentinel of the packed slab keys
 
-def _bands(mesh: BandMesh, x: Union[torch.Tensor, Sequence[torch.Tensor]],
-           axis: str = "rows") -> Bands:
-    """A whole tensor split into the mesh's bands, or a band list checked."""
-    n = mesh.shape[axis]
+
+def _bands(m: Mesh, x: Union[torch.Tensor, Sequence[torch.Tensor]]) -> Bands:
+    """This process's bands of a whole tensor on the line ``m``, or a band
+    list (one band per part) checked."""
+    (axis,), n = m.axis_names, m.size
     if isinstance(x, torch.Tensor):
         if x.shape[0] % n != 0:
             raise ValueError(f"H={x.shape[0]} not divisible by mesh axis {axis}={n}")
-        return mesh.split(x)
+        return m.split(x)
     x = list(x)
-    if len(x) != n or len({b.shape for b in x}) != 1:
+    if len(x) != len(m.devices) or len({b.shape for b in x}) != 1:
         raise ValueError(f"{len(x)} bands of shapes {[tuple(b.shape) for b in x]} "
                          f"for mesh axis {axis}={n}")
-    return [b.to(d) for b, d in zip(x, mesh.devices)]
+    return [b.to(d) for b, d in zip(x, m.devices)]
 
 
-# ---------------------------------------------------------------------------
-# Collectives across the band list
-# ---------------------------------------------------------------------------
+def _whole(m: Mesh, x: Union[torch.Tensor, Sequence[torch.Tensor]]) -> torch.Tensor:
+    """A whole tensor on the line's first device, from itself or its bands."""
+    return x.to(m.devices[0]) if isinstance(x, torch.Tensor) else m.gather(list(x))
 
 
-def shift_down(mesh: BandMesh, parts: Sequence[torch.Tensor]) -> Bands:
-    """``ppermute`` i → i + 1: band i receives band i − 1's part, band 0
-    receives zeros."""
-    return [torch.zeros_like(parts[0]).to(mesh.devices[0])] + [
-        p.to(d) for p, d in zip(parts[:-1], mesh.devices[1:])]
-
-
-def shift_up(mesh: BandMesh, parts: Sequence[torch.Tensor]) -> Bands:
-    """``ppermute`` i + 1 → i: band i receives band i + 1's part, the last
-    band receives zeros."""
-    return [p.to(d) for p, d in zip(parts[1:], mesh.devices[:-1])] + [
-        torch.zeros_like(parts[-1]).to(mesh.devices[-1])]
-
-
-def halo_exchange(mesh: BandMesh, bands: Sequence[torch.Tensor], halo: int) -> Bands:
+def halo_exchange(mesh: Mesh, bands: Sequence[torch.Tensor], halo: int) -> Bands:
     """Extend each (Hb, ...) band with ``halo`` rows from each neighbour:
     (Hb + 2·halo, ...).  The image's first and last band receive zeros —
     identical to the single-device zero-padded window sums."""
@@ -95,20 +91,9 @@ def halo_exchange(mesh: BandMesh, bands: Sequence[torch.Tensor], halo: int) -> B
         return list(bands)
     if halo > bands[0].shape[0]:
         raise ValueError(f"halo {halo} exceeds the band height {bands[0].shape[0]}")
-    top = shift_down(mesh, [b[-halo:] for b in bands])
-    bot = shift_up(mesh, [b[:halo] for b in bands])
+    top = mesh.shift_down([b[-halo:] for b in bands])
+    bot = mesh.shift_up([b[:halo] for b in bands])
     return [torch.cat([t, b, u]) for t, b, u in zip(top, bands, bot)]
-
-
-def any_band(mesh: BandMesh, flags: Sequence[torch.Tensor]) -> bool:
-    """``psum(flag) > 0`` of one 0-d bool per band, read on the host."""
-    return bool(torch.stack([f.to(mesh.devices[0]) for f in flags]).any())
-
-
-def all_gather(mesh: BandMesh, parts: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Every band's part stacked, (n, ...), on the first device; what the
-    bands compute from it is computed there once and sent back."""
-    return torch.stack([p.to(mesh.devices[0]) for p in parts])
 
 
 # ---------------------------------------------------------------------------
@@ -119,7 +104,7 @@ def all_gather(mesh: BandMesh, parts: Sequence[torch.Tensor]) -> torch.Tensor:
 def remap_row_sharded(
     images: torch.Tensor,
     maps: Union[torch.Tensor, Sequence[torch.Tensor]],
-    mesh: BandMesh,
+    mesh: Mesh,
     axis: str = "rows",
 ) -> Bands:
     """Row-band rectification: ``images`` (S, H_src, W_src[, C]) is the raw
@@ -127,17 +112,16 @@ def remap_row_sharded(
     ``maps`` (S, H, W, 2), or its bands (S, H/n, W, 2).  Each band runs one
     K1 launch for its destination rows.  Returns the (S, H/n, W[, C])
     bands, bit-identical to the whole-image remap."""
+    m = mesh.along(axis)
     if isinstance(maps, torch.Tensor):
-        n = mesh.shape[axis]
-        if maps.shape[1] % n != 0:
-            raise ValueError(f"H={maps.shape[1]} not divisible by mesh axis {axis}={n}")
-        hb = maps.shape[1] // n
-        maps = [maps[:, i * hb:(i + 1) * hb].to(d) for i, d in enumerate(mesh.devices)]
-    return [remap_kernel.rectify(img, m) for img, m in zip(mesh.replicate(images), maps)]
+        if maps.shape[1] % m.size != 0:
+            raise ValueError(f"H={maps.shape[1]} not divisible by mesh axis {axis}={m.size}")
+        maps = m.split(maps, dim=1)
+    return [remap_kernel.rectify(img, mp) for img, mp in zip(m.replicate(images), maps)]
 
 
 # ---------------------------------------------------------------------------
-# Matching
+# Matching by row band
 # ---------------------------------------------------------------------------
 
 
@@ -148,49 +132,48 @@ def _prefilter_halo(cfg: StereoBMConfig) -> int:
     return 1 if cfg.xsobel else 4
 
 
-def _prefilter_bands(mesh: BandMesh, bands: Bands, cfg: StereoBMConfig) -> Bands:
+def _prefilter_bands(m: Mesh, bands: Bands, cfg: StereoBMConfig) -> Bands:
     """Each band's prefilter over its rows plus its neighbours' stencil rows;
     at the image's first and last row the prefilter's own edge padding
     applies, as on the whole image."""
     p = _prefilter_halo(cfg)
-    n, hb = len(bands), bands[0].shape[0]
+    n, hb = m.size, bands[0].shape[0]
     if n > 1 and p > hb:
         raise ValueError(f"prefilter halo {p} exceeds the band height {hb}")
-    top = shift_down(mesh, [b[-p:] for b in bands])
-    bot = shift_up(mesh, [b[:p] for b in bands])
+    top = m.shift_down([b[-p:] for b in bands])
+    bot = m.shift_up([b[:p] for b in bands])
     out = []
-    for i, b in enumerate(bands):
-        parts = ([top[i]] if i > 0 else []) + [b] + ([bot[i]] if i < n - 1 else [])
-        lo = p if i > 0 else 0
+    for i, g, b in zip(range(len(bands)), m.indices, bands):
+        parts = ([top[i]] if g > 0 else []) + [b] + ([bot[i]] if g < n - 1 else [])
+        lo = p if g > 0 else 0
         out.append(bm_ops.prefilter(torch.cat(parts), cfg)[lo:lo + hb])
     return out
 
 
-def _texture_bands(mesh: BandMesh, lf: Bands, cfg: StereoBMConfig) -> List:
+def _texture_bands(m: Mesh, lf: Bands, cfg: StereoBMConfig) -> List:
     """``texture_sum`` by band (None per band when the gate is off): the
     window sum of |prefiltered − cap| over halo rows that are zero beyond
     the image, as the whole image's zero-padded sum."""
     if cfg.texture_threshold <= 0:
         return [None] * len(lf)
     r, hb = cfg.block_radius, lf[0].shape[0]
-    t_e = halo_exchange(mesh, [(x - cfg.prefilter_cap).abs() for x in lf], r)
+    t_e = halo_exchange(m, [(x - cfg.prefilter_cap).abs() for x in lf], r)
     return [bm_ops._box_sum(t, cfg.block_size)[r:r + hb] for t in t_e]
 
 
-def _matcher_inputs(L: Bands, R: Bands, cfg: StereoBMConfig, mesh: BandMesh, halo: int):
+def _matcher_inputs(L: Bands, R: Bands, cfg: StereoBMConfig, m: Mesh, halo: int):
     """(prefiltered left and right bands extended by ``halo``, texture
     bands)."""
-    lf = _prefilter_bands(mesh, L, cfg)
-    rf = _prefilter_bands(mesh, R, cfg)
-    return halo_exchange(mesh, lf, halo), halo_exchange(mesh, rf, halo), _texture_bands(
-        mesh, lf, cfg)
+    lf = _prefilter_bands(m, L, cfg)
+    rf = _prefilter_bands(m, R, cfg)
+    return halo_exchange(m, lf, halo), halo_exchange(m, rf, halo), _texture_bands(m, lf, cfg)
 
 
 def disparity_row_sharded(
     left_rect,
     right_rect,
     cfg: StereoBMConfig,
-    mesh: BandMesh,
+    mesh: Mesh,
     axis: str = "rows",
 ) -> Tuple[Bands, Bands]:
     """Row-band block matching, bit-identical to
@@ -204,15 +187,16 @@ def disparity_row_sharded(
     ``lr_check`` the right disparity is a second K2 launch on the band's
     mirrored, swapped extended rows, ungated, as in the JAX band
     (frontend.py, ``use_pallas``)."""
-    L, R = _bands(mesh, left_rect, axis), _bands(mesh, right_rect, axis)
+    m = mesh.along(axis)
+    L, R = _bands(m, left_rect), _bands(m, right_rect)
     hb, halo = L[0].shape[0], cfg.block_radius
-    H = hb * len(L)
-    lf_e, rf_e, tex = _matcher_inputs(L, R, cfg, mesh, halo)
+    H = hb * m.size
+    lf_e, rf_e, tex = _matcher_inputs(L, R, cfg, m, halo)
     disp_out, valid_out = [], []
-    for i in range(len(L)):
-        inner = slice(halo, halo + hb)
-        raw = [m[inner] for m in stereobm_kernel.fused_raw(lf_e[i], rf_e[i], cfg)]
-        disp, valid = stereobm_kernel.fused_gates(*raw, cfg, tex[i], row_offset=i * hb,
+    inner = slice(halo, halo + hb)
+    for i, g in enumerate(m.indices):
+        raw = [x[inner] for x in stereobm_kernel.fused_raw(lf_e[i], rf_e[i], cfg)]
+        disp, valid = stereobm_kernel.fused_gates(*raw, cfg, tex[i], row_offset=g * hb,
                                                   total_rows=H)
         if cfg.lr_check:
             dr_raw = stereobm_kernel.fused_raw(rf_e[i].flip(1), lf_e[i].flip(1), cfg)[0]
@@ -226,7 +210,7 @@ def disparity_sgm_row_sharded(
     left_rect,
     right_rect,
     cfg: StereoBMConfig,
-    mesh: BandMesh,
+    mesh: Mesh,
     axis: str = "rows",
     p1: float = 10.0,
     p2: float = 120.0,
@@ -241,32 +225,137 @@ def disparity_sgm_row_sharded(
     band assembles the aggregated total from the stored volumes and runs the
     WTA and consistency tail in plain PyTorch, as the single-device fused
     path does."""
-    L, R = _bands(mesh, left_rect, axis), _bands(mesh, right_rect, axis)
+    m = mesh.along(axis)
+    L, R = _bands(m, left_rect), _bands(m, right_rect)
     hb = L[0].shape[0]
-    H = hb * len(L)
+    H = hb * m.size
     # a band can only export as many halo rows as it owns
     halo = min(cfg.block_radius + warmup_rows, hb)
     integer_input = not L[0].is_floating_point()
-    lf_e, rf_e, tex = _matcher_inputs(L, R, cfg, mesh, halo)
+    lf_e, rf_e, tex = _matcher_inputs(L, R, cfg, m, halo)
     disp_out, valid_out = [], []
-    for i in range(len(L)):
-        inner = slice(halo, halo + hb)
+    inner = slice(halo, halo + hb)
+    for i, g in enumerate(m.indices):
         if cfg.lr_check:
             vols = sgm_kernel.sgm_fused_raw(lf_e[i], rf_e[i], cfg, p1, p2, integer_input,
                                             return_volumes=True)
             total = sgm_kernel._masked_total(*(v.permute(1, 2, 0) for v in vols), cfg)
             cost_agg = total.permute(2, 0, 1)[:, inner]
             disp, valid = bm_ops.wta_disparity(cost_agg, None, cfg, tex=tex[i],
-                                               row_offset=i * hb, total_rows=H)
+                                               row_offset=g * hb, total_rows=H)
             disp_r = bm_ops.right_disparity_from_cost(cost_agg, cfg)
             disp, valid = bm_ops.apply_lr_check(disp, valid, disp_r, cfg)
         else:
             raw = sgm_kernel.sgm_fused_raw(lf_e[i], rf_e[i], cfg, p1, p2, integer_input)
-            disp, valid = stereobm_kernel.fused_gates(*(m[inner] for m in raw), cfg, tex[i],
-                                                      row_offset=i * hb, total_rows=H)
+            disp, valid = stereobm_kernel.fused_gates(*(x[inner] for x in raw), cfg, tex[i],
+                                                      row_offset=g * hb, total_rows=H)
         disp_out.append(disp)
         valid_out.append(valid)
     return disp_out, valid_out
+
+
+# ---------------------------------------------------------------------------
+# Matching by disparity slab
+# ---------------------------------------------------------------------------
+
+
+def disparity_slab_sharded(
+    left_rect,
+    right_rect,
+    cfg: StereoBMConfig,
+    mesh: Mesh,
+    axis: str = "disp",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Disparity-slab block matching, the JAX ``disparity_slab_sharded``:
+    each entry of the line along ``axis`` evaluates ``num_disparities / n``
+    candidates over the whole image, and the winners combine by a ``pmin``
+    over packed int32 keys ``round(cost·16)·nd + d`` (``_BIG_INT`` for an
+    invalid cost; ties go to the smallest disparity, as the single-device
+    argmin).  Inputs: (H, W) rectified mono images or their row bands on the
+    same line; outputs: the whole (disparity float32, valid bool) on the
+    line's first device, equal to :func:`ops.stereobm.compute_disparity`.
+
+    Subpixel refinement takes the winner's neighbour costs, which may lie
+    in the next slab: each slab's first and last cost planes go to its
+    neighbours (``shift_up`` / ``shift_down``), the winner's own cost comes
+    from the owning slab by a ``psum``, and so does the parabola's step.
+    Uniqueness is the ``pmin`` of each slab's minimum over |d − best| > 1.
+    ``lr_check`` is not applied, as in the JAX version.
+
+    The slab's cost volume is plain torch (:func:`ops.stereobm.sad_cost_volume`
+    at the slab's disparity offset, one batched pass per slab), as slab mode
+    runs XLA's cost-volume path and never the fused matcher in JAX: the
+    cross-slab reductions need the cost planes in memory."""
+    m = mesh.along(axis)
+    n, nd = m.size, cfg.num_disparities
+    if nd % n != 0:
+        raise ValueError(f"num_disparities={nd} not divisible by {n}")
+    k, mind, r = nd // n, cfg.min_disparity, cfg.block_radius
+    lf = bm_ops.prefilter(_whole(m, left_rect), cfg)
+    rf = bm_ops.prefilter(_whole(m, right_rect), cfg)
+    H, W = lf.shape
+    dev = lf.device
+    offsets = [g * k for g in m.indices]
+    costs = [bm_ops.sad_cost_volume(a, b, cfg, d_offset=o, count=k)
+             for a, b, o in zip(m.replicate(lf), m.replicate(rf), offsets)]
+
+    keys = []
+    for c, o in zip(costs, offsets):
+        local_cost, local_best = torch.min(c, dim=0)
+        ci = torch.where(local_cost >= bm_ops.BIG, _BIG_INT,
+                         torch.round(local_cost * 16.0).to(torch.int32))
+        keys.append(ci * nd + (local_best.to(torch.int32) + o))
+    key = m.pmin(keys)[0]
+    q = torch.div(key, nd, rounding_mode="floor")
+    best_cost = torch.where(q >= _BIG_INT, bm_ops.BIG, q.float() / 16.0)
+    best_d = torch.remainder(key, nd)
+    valid = (best_cost < bm_ops.BIG) & bm_ops.border_mask(H, W, r, dev)
+    if cfg.texture_threshold > 0:
+        valid &= bm_ops.texture_sum(lf, cfg) >= cfg.texture_threshold
+    disp = (best_d + mind).float()
+
+    bests = m.replicate(best_d)
+    if cfg.refine_disparity:
+        # boundary planes from the neighbour slabs (the line's ends see BIG)
+        prev_pl = m.shift_down([c[-1] for c in costs])
+        next_pl = m.shift_up([c[0] for c in costs])
+        c0s, steps = [], []
+        for i, (g, c, o, bd) in enumerate(zip(m.indices, costs, offsets, bests)):
+            rel = bd - o
+            owner = (rel >= 0) & (rel < k)
+            idx0 = rel.clamp(-1, k)
+            edge_lo = prev_pl[i] if g > 0 else bm_ops.BIG
+            edge_hi = next_pl[i] if g < n - 1 else bm_ops.BIG
+
+            def plane_at(idx, c=c, edge_lo=edge_lo, edge_hi=edge_hi):
+                inside = c.gather(0, idx.clamp(0, k - 1)[None])[0]
+                return torch.where((idx >= 0) & (idx < k), inside,
+                                   torch.where(idx == -1, edge_lo,
+                                               torch.where(idx == k, edge_hi, bm_ops.BIG)))
+
+            cm, cp = plane_at(idx0 - 1), plane_at(idx0 + 1)
+            c0s.append(torch.where(owner, plane_at(idx0), 0.0))
+            steps.append((owner, bd, cm, cp))
+        # the winner's exact cost from its owner (the packed one is in 1/16)
+        deltas = []
+        for c0, (owner, bd, cm, cp) in zip(m.psum(c0s), steps):
+            denom = cm + cp - 2.0 * c0
+            delta = torch.where(denom > 0, (cm - cp) / (2.0 * denom), 0.0).clamp(-0.5, 0.5)
+            interior = owner & (bd > 0) & (bd < nd - 1) & (cm < bm_ops.BIG) & (cp < bm_ops.BIG)
+            deltas.append(torch.where(interior, delta, 0.0))
+        disp = disp + m.psum(deltas)[0]
+
+    if cfg.uniqueness_ratio > 0:
+        excl = []
+        for c, o, bd in zip(costs, offsets, bests):
+            didx = o + torch.arange(k, device=c.device)[:, None, None]
+            away = (didx - bd[None]).abs() > 1
+            excl.append(torch.where(away, c, bm_ops.BIG).amin(0))
+        thresh = best_cost * (1.0 + cfg.uniqueness_ratio / 100.0)
+        valid &= ~(m.pmin(excl)[0] <= thresh)
+
+    disp = torch.where(valid, disp, torch.full((), float(mind - 1), device=dev))
+    return disp, valid
 
 
 # ---------------------------------------------------------------------------
@@ -303,7 +392,7 @@ def _reconcile(rec_lab: torch.Tensor, rec_cnt: torch.Tensor, n_labels: int,
 def speckle_size_fields(
     disp: Bands,
     valid: Bands,
-    mesh: BandMesh,
+    mesh: Mesh,
     *,
     max_speckle_size: int,
     max_diff: float,
@@ -313,8 +402,9 @@ def speckle_size_fields(
     (field, conn_x, conn_y) — the band-local component sizes (capped at
     ``max_speckle_size + 1``) raised at the boundary rows to the reconciled
     totals of the components that cross the band's edges, and the
-    band-local link masks.  With one band the field is the band's sizes."""
-    n, (hb, W) = len(disp), disp[0].shape
+    band-local link masks.  With one band the field is the band's sizes.
+    ``mesh`` is the band line (``Mesh.along``)."""
+    n, (hb, W) = mesh.size, disp[0].shape
     H = n * hb
     sentinel = H * W
     cap = max_speckle_size + 1
@@ -322,25 +412,26 @@ def speckle_size_fields(
     conn = [speckle_ops._connectivity(d, v, max_diff) for d, v in zip(disp, valid)]
 
     # cross-boundary connectivity (disp/valid of the adjacent rows)
-    prev_d = shift_down(mesh, [d[-1] for d in disp])
-    prev_v = shift_down(mesh, [v[-1] for v in valid])
-    next_d = shift_up(mesh, [d[0] for d in disp])
-    next_v = shift_up(mesh, [v[0] for v in valid])
+    prev_d = mesh.shift_down([d[-1] for d in disp])
+    prev_v = mesh.shift_down([v[-1] for v in valid])
+    next_d = mesh.shift_up([d[0] for d in disp])
+    next_v = mesh.shift_up([v[0] for v in valid])
     conn_top = [v[0] & pv & ((d[0] - pd).abs() <= max_diff)
                 for d, v, pd, pv in zip(disp, valid, prev_d, prev_v)]
     conn_bot = [v[-1] & nv & ((d[-1] - nd).abs() <= max_diff)
                 for d, v, nd, nv in zip(disp, valid, next_d, next_v)]
 
-    def pixels(i, dev):
-        return (i * hb * W + torch.arange(hb * W, dtype=torch.int32, device=dev)).reshape(hb, W)
+    def pixels(g, dev):
+        return (g * hb * W + torch.arange(hb * W, dtype=torch.int32, device=dev)).reshape(hb, W)
 
     fill = [torch.full((), sentinel, dtype=torch.int32, device=v.device) for v in valid]
-    lab = [torch.where(v, pixels(i, v.device), s) for i, (v, s) in enumerate(zip(valid, fill))]
+    lab = [torch.where(v, pixels(g, v.device), s)
+           for g, v, s in zip(mesh.indices, valid, fill)]
 
     def merge(lab):
         # boundary rows connected across a band edge take the smaller label
-        prev_lab = shift_down(mesh, [x[-1] for x in lab])
-        next_lab = shift_up(mesh, [x[0] for x in lab])
+        prev_lab = mesh.shift_down([x[-1] for x in lab])
+        next_lab = mesh.shift_up([x[0] for x in lab])
         for i, x in enumerate(lab):
             pl = torch.where(prev_v[i], prev_lab[i], fill[i])
             nl = torch.where(next_v[i], next_lab[i], fill[i])
@@ -357,7 +448,7 @@ def speckle_size_fields(
         new = [speckle_kernel.band_labels(x, cx, cy, 2) for x, (cx, cy) in zip(lab, conn)]
         if n > 1:
             new = merge(new)
-        changed = any_band(mesh, [(a != b).any() for a, b in zip(new, lab)])
+        changed = mesh.any([(a != b).any() for a, b in zip(new, lab)])
         lab = new
         if not changed:
             break
@@ -367,12 +458,12 @@ def speckle_size_fields(
         return [(cnt[0],) + conn[0]]
 
     # reconciliation over boundary rows only: (n, 2, W) records
-    rec_lab = all_gather(mesh, [torch.stack([x[0], x[-1]]) for x in lab])
-    rec_cnt = all_gather(mesh, [torch.stack([c[0], c[-1]]) for c in cnt])
+    rec_lab = mesh.all_gather([torch.stack([x[0], x[-1]]) for x in lab])
+    rec_cnt = mesh.all_gather([torch.stack([c[0], c[-1]]) for c in cnt])
     btot = _reconcile(rec_lab, rec_cnt, sentinel, cap)
     out = []
-    for i, c in enumerate(cnt):
-        mine = btot[i].to(c.device)
+    for i, (g, c) in enumerate(zip(mesh.indices, cnt)):
+        mine = btot[g].to(c.device)
         field = c.clone()
         field[0] = torch.maximum(c[0], mine[0])
         field[-1] = torch.maximum(field[-1], mine[1])
@@ -383,7 +474,7 @@ def speckle_size_fields(
 def filter_speckles_row_sharded(
     disp,
     valid,
-    mesh: BandMesh,
+    mesh: Mesh,
     axis: str = "rows",
     *,
     max_speckle_size: int = 800,
@@ -408,13 +499,13 @@ def filter_speckles_row_sharded(
     ``iters`` is accepted and not read, as in the JAX version: the label
     rounds are a fixed 2 per merge round.  Returns the (filtered disparity,
     keep) bands."""
-    D = _bands(mesh, disp, axis)
-    V = _bands(mesh, valid, axis)
-    fields = speckle_size_fields(D, V, mesh, max_speckle_size=max_speckle_size,
+    m = mesh.along(axis)
+    D, V = _bands(m, disp), _bands(m, valid)
+    fields = speckle_size_fields(D, V, m, max_speckle_size=max_speckle_size,
                                  max_diff=max_diff, merge_rounds=merge_rounds)
     disp_out, keep_out = [], []
     for d, v, (field, cx, cy) in zip(D, V, fields):
-        sizes = field if len(D) == 1 else speckle_kernel.max_propagate(
+        sizes = field if m.size == 1 else speckle_kernel.max_propagate(
             field, cx, cy, 4 * d.shape[0])
         keep = (sizes > max_speckle_size) & v
         fill = torch.full((), float(fill_value), device=d.device)
@@ -431,7 +522,7 @@ def filter_speckles_row_sharded(
 def bilateral_row_sharded(
     disp,
     guide,
-    mesh: BandMesh,
+    mesh: Mesh,
     axis: str = "rows",
     *,
     ndisp: int = 64,
@@ -450,20 +541,20 @@ def bilateral_row_sharded(
     The halo is clamped to the band height; beyond that the result is the
     tiled approximation the JAX version computes.  Returns the refined
     disparity bands."""
-    D = _bands(mesh, disp, axis)
-    G = _bands(mesh, guide, axis)
+    m = mesh.along(axis)
+    D, G = _bands(m, disp), _bands(m, guide)
     hb, W = D[0].shape
-    H = hb * len(D)
+    H = hb * m.size
     halo = min(2 * iters * radius, hb)
-    d_e = halo_exchange(mesh, [d.float() for d in D], halo)
-    g_e = halo_exchange(mesh, [g.float() for g in G], halo)
-    v_e = halo_exchange(mesh, [torch.ones((hb, W), dtype=torch.float32, device=d.device)
-                               for d in D], halo)
+    d_e = halo_exchange(m, [d.float() for d in D], halo)
+    g_e = halo_exchange(m, [g.float() for g in G], halo)
+    v_e = halo_exchange(m, [torch.ones((hb, W), dtype=torch.float32, device=d.device)
+                            for d in D], halo)
     out = []
-    for i, (d, g, v) in enumerate(zip(d_e, g_e, v_e)):
+    for i, (gi, d, g, v) in enumerate(zip(m.indices, d_e, g_e, v_e)):
         r = bilateral_ops._bilateral_core(
             d, g, v, ndisp=ndisp, radius=radius, iters=iters,
             edge_threshold=edge_threshold, max_disc_threshold=max_disc_threshold,
-            sigma_range=sigma_range, row_offset=i * hb - halo, total_rows=H)
+            sigma_range=sigma_range, row_offset=gi * hb - halo, total_rows=H)
         out.append(r[halo:halo + hb].to(D[i].dtype))
     return out

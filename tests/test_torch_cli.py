@@ -118,8 +118,8 @@ def test_run_euroc_matches_jax_cli(tmp_path, calib, capsys):
 
 def test_run_band_mesh_and_unported_options(tmp_path, calib):
     """``--devices 4 --device cpu`` runs the row-band pipeline on a CPU band
-    mesh and equals one device (speckle off); ``--shard-mode disp`` and
-    ``bench`` raise."""
+    mesh, and ``--shard-mode disp`` the slab matcher on it; both equal one
+    device (speckle off); ``bench`` raises."""
     root = str(tmp_path / "euroc")
     _make_euroc(root, n_frames=1)
     common = ["run", *calib, "--euroc", root, "--outputs", "disparity", *BM,
@@ -128,9 +128,10 @@ def test_run_band_mesh_and_unported_options(tmp_path, calib):
     assert cli.main([*common, "--out-dir", str(tmp_path / "mesh"), "--devices", "4"]) == 0
     np.testing.assert_array_equal(np.load(tmp_path / "mesh" / "disparity_0000.npy"),
                                   np.load(tmp_path / "one" / "disparity_0000.npy"))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cli.main([*common, "--out-dir", str(tmp_path / "x"), "--devices", "4",
-                  "--shard-mode", "disp"])
+    assert cli.main([*common, "--out-dir", str(tmp_path / "slab"), "--devices", "4",
+                     "--shard-mode", "disp"]) == 0
+    np.testing.assert_array_equal(np.load(tmp_path / "slab" / "disparity_0000.npy"),
+                                  np.load(tmp_path / "one" / "disparity_0000.npy"))
     with pytest.raises(NotImplementedError, match="item 8"):
         cli.main(["bench"])
 

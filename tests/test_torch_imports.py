@@ -15,9 +15,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "ros_gpu_stereo_processor_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "ros_gpu_stereo_processor_tpu")
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                       ROOT / "scripts" / "torch_remap_blocks.py",
-                                       ROOT / "scripts" / "torch_speckle_rounds.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "scripts").glob("torch_*.py"))
 
 
 def _imports(tree):
@@ -64,7 +63,8 @@ def test_port_imports_without_jax_or_yaml():
         "import ros_gpu_stereo_processor_tpu_torch as p\n"
         "from ros_gpu_stereo_processor_tpu_torch.ops import (\n"
         "    remap_kernel, sgm, sgm_kernel, speckle_kernel, stereobm_kernel)\n"
-        "from ros_gpu_stereo_processor_tpu_torch.parallel import frontend, mesh\n"
+        "from ros_gpu_stereo_processor_tpu_torch.parallel import (\n"
+        "    dist_ba, frontend, mesh, multihost, scaling)\n"
         "from ros_gpu_stereo_processor_tpu_torch.ops import features\n"
         "from ros_gpu_stereo_processor_tpu_torch.models import ba, posegraph, slam, vo\n"
         "from ros_gpu_stereo_processor_tpu_torch.utils import division, evaluate, io, lie, synth\n"

@@ -355,9 +355,14 @@ def test_mesh_pipeline_raises(jmodel):
         _port(jmodel, PIPE_CASES["speckle_off"], mesh=cpu_mesh(5))
     with pytest.raises(ValueError, match="first device"):
         _port(jmodel, PIPE_CASES["speckle_off"], mesh=cpu_mesh(4), device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(jmodel, PIPE_CASES["speckle_off"], mesh=cpu_mesh(4),
-              shard_mode="disp").process(left, right, out)
+    # slab mode, which raised here before it was ported, equals the JAX
+    # pipeline's slab mode on 4 slabs
+    want = J.StereoPipeline(jmodel, PIPE_CASES["speckle_off"], mesh=jax_mesh(4),
+                            shard_mode="disp", use_pallas=False).process(
+        left, right, J.Outputs.of("disparity")).fetch()
+    got = _port(jmodel, PIPE_CASES["speckle_off"], mesh=cpu_mesh(4),
+                shard_mode="disp").process(left, right, out).fetch()
+    _assert_outputs_equal(got, want)
     # the bilateral filter, which raised here before it was ported, runs by
     # band and equals the single-device pipeline
     bl = PIPE_CASES["speckle_off"].replace(bilateral=JBilateral(enabled=True))
