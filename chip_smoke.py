@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's stereo pipeline, SLAM engine, multi-device and
-multi-process paths, serve daemon and command line once on a CUDA card.
+multi-process paths, serve daemon, command line and bench once on a CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -122,7 +123,15 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
        * the command line, in subprocesses: ``info``, then ``run --euroc``
          on a 5-frame EuRoC directory whose frame 0 is the served frame 0:
          exit 0 and that frame's disparity equal to the served one;
-  8. prints the seconds of each phase, one JSON line per path with its
+  8. runs the port's bench (``python3 -m
+     ros_gpu_stereo_processor_tpu_torch.bench``) in a subprocess at the JAX
+     bench's defaults: exit 0, a last line of at most 1,800 characters whose
+     every metric is finite and > 0, no ``*_error`` key, K1–K6 launched
+     (counts set to 0 at the bench's start) and K7 and BL not; then, in this
+     process, the bench's timed compute window and one SGM and SLAM-compute
+     unit of work under ``torch.cuda.set_sync_debug_mode("error")``: no host
+     sync inside them;
+  9. prints the seconds of each phase, one JSON line per path with its
      frame times, one JSON line with each kernel's launches, error, times
      (events and device) and bound, and as its last line
      ``{"ok": true, "device": {...}}``.
@@ -184,13 +193,9 @@ BAND_ROWS = 134     # a mesh band's launch: 480 / BANDS rows and 2 x 7 halo rows
 KERNEL_REPS = 20
 PLAIN_REPS = 3
 PROFILER_WINDOWS = 8   # windows tried when the profiler drops a window's events
+BENCH_TIMEOUT_S = 600
+BENCH_WINDOW_ITERS = 10   # the compute section's BENCH_ITERS
 H, W = 480, 752
-
-# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory and
-# float32 outside the tensor cores.  A bound is the larger of bytes / rate
-# and operations / rate: each input read once, each output written once.
-HBM_BYTES_PER_MS = 3.35e9
-FP32_OPS_PER_MS = 67e9
 
 SOURCES = {   # key: (C entry point, CUDA source, TPU kernel it replaces)
     "K1": ("remap_bilinear_u8", "csrc/remap.cu", "ops/remap_pallas.py:154"),
@@ -216,29 +221,6 @@ def phase(name, seconds):
     yield
     seconds[name] = time.perf_counter() - t0
     log(f"phase {name}: {seconds[name]:.1f} s")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def euroc_like_model(calib):
-    """The distorted EuRoC-like 752×480 calibration of
-    ``__graft_entry__._model_and_frame`` (D = [-0.37, 0.11, 0, 0, 0])."""
-    K = np.array([[460.0, 0, 376], [0, 460.0, 240], [0, 0, 1.0]])
-    P = np.hstack([np.array([[441.0, 0, 322], [0, 441.0, 230], [0, 0, 1.0]]),
-                   np.zeros((3, 1))])
-    Pr = P.copy()
-    Pr[0, 3] = -44.1
-    D = np.array([-0.37, 0.11, 0.0, 0.0, 0.0])
-
-    def mk(PP, name):
-        return calib.CameraCalib(W, H, K, D, np.eye(3), PP, name)
-
-    return calib.StereoCameraModel.from_calibs(mk(P, "left"), mk(Pr, "right"))
 
 
 def cuda_ms(torch, fn, reps):
@@ -336,12 +318,6 @@ def check_round_counts(torch, name, kern, plain, large):
         f"{lo}; at {max(lo - 1, 1)} rounds "
         f"{'stops before convergence' if not torch.equal(short, full) else 'is converged'}")
     return lo, err
-
-
-def bound(nbytes: float, nops: float):
-    """(least ms, what sets it) for moving ``nbytes`` and doing ``nops``."""
-    b, o = nbytes / HBM_BYTES_PER_MS, nops / FP32_OPS_PER_MS
-    return (b, "bytes") if b >= o else (o, "operations")
 
 
 def require_equal(name, got, want):
@@ -467,9 +443,10 @@ def k5_calls(down, lr):
             ("right-left+left-right", lr, False, True))
 
 
-def check_sgm_kernels(torch, sgm_kernel, stereobm, rect, cfg, p1, p2):
+def check_sgm_kernels(torch, sgm_kernel, stereobm, rl, rect, cfg, p1, p2):
     """K4, K5 (the frame's three calls) and K6 against their plain versions
-    on the card, exact; then their times and bounds."""
+    on the card, exact; then their times and bounds (``rl``: the port's
+    utils/roofline.py)."""
     lf = stereobm.prefilter(rect[0], cfg)
     rf = stereobm.prefilter(rect[1], cfg)
     cdt, edt = sgm_kernel.storage_dtypes(cfg, p1, p2, True)
@@ -507,14 +484,9 @@ def check_sgm_kernels(torch, sgm_kernel, stereobm, rect, cfg, p1, p2):
             return ev, fn(cost, lr, p1, p2, False, True, edt)
         return run
 
-    nd = cfg.num_disparities
-    cs, es = cost.element_size(), down.element_size()
-    vol = H * W * nd
-    work = {   # (bytes, operations), per call
-        "K4": (2 * H * W * 4 + vol * (cs + es), 16 * vol),
-        "K5": (vol * (cs + 5 * es / 3), 10 * vol),    # mean of the frame's 3 calls
-        "K6": (vol * (cs + 2 * es) + 3 * H * W * 4, 7 * vol),
-    }
+    # per call; K5's is the mean of the frame's 3 calls
+    work = rl.sgm_fused_model(H, W, cfg.num_disparities, cost.element_size(),
+                              down.element_size())
     times = {
         "K4": timed(torch, lambda: sgm_kernel.cost_and_down(lf, rf, cfg, p1, p2, cdt, edt),
                     lambda: sgm_kernel.cost_and_down_plain(lf, rf, cfg, p1, p2, cdt, edt), 2,
@@ -535,13 +507,13 @@ def check_sgm_kernels(torch, sgm_kernel, stereobm, rect, cfg, p1, p2):
                                       "step_ns": ms * 1e6 / (H if vertical else W)}
     out = {}
     for k in ("K4", "K5", "K6"):
-        b_ms, by = bound(*work[k])
+        b_ms, by = rl.bound(work[k]["bytes"], work[k]["ops"])
         out[k] = {"max_abs_err": err[k], **times[k], "bound_ms": b_ms, "bound_by": by,
                   "library_ms": None}
     return out
 
 
-def check_k7(torch, speckle, speckle_kernel, frontend, mesh, disp, valid, sp_cfg):
+def check_k7(torch, speckle, speckle_kernel, frontend, rl, mesh, disp, valid, sp_cfg):
     """K7 and the band label rounds on band 1 of the mesh's split of one BM
     frame, against their plain versions on the card, exact at several round
     counts (up to 4·H_b for K7, 64 for the label rounds); then their times
@@ -568,14 +540,14 @@ def check_k7(torch, speckle, speckle_kernel, frontend, mesh, disp, valid, sp_cfg
         torch, "band label rounds", lambda k: speckle_kernel.band_labels(lab, cx, cy, k),
         lambda k: speckle._label_rounds(lab, cx, cy, k), 64)
 
-    nbytes = hb * w * (4 + 1 + 1 + 4)
     out = {}
     for key, fn, plain, r, e in (
             ("K7", lambda: speckle_kernel.max_propagate(field, cx, cy, iters),
              lambda: speckle._max_propagate(field, cx, cy, iters), rounds, err),
             ("BL", lambda: speckle_kernel.band_labels(lab, cx, cy, 2),
              lambda: speckle._label_rounds(lab, cx, cy, 2), 2, bl_err)):
-        b_ms, by = bound(nbytes, 2 * 2 * r * hb * w)
+        m = rl.maxprop_model(hb, w, r)
+        b_ms, by = rl.bound(m["bytes"], m["ops"])
         out[key] = {"max_abs_err": e, **timed(torch, fn, plain, 2),
                     "bound_ms": b_ms, "bound_by": by, "library_ms": None}
     out["K7"]["rounds_to_converge"] = rounds
@@ -1336,6 +1308,104 @@ def run_cli(io, calib_yamls, frames, served0, work):
              "kernel_launches": launches}, launches)
 
 
+def run_bench(torch, port, bench, dev):
+    """The port's bench, ``python3 -m ros_gpu_stereo_processor_tpu_torch.bench``,
+    in a subprocess on the card at the JAX bench's defaults, not cut (B 8,
+    64 e2e frames, 24 SLAM frames, 3 repeats).  Gates:
+    exit 0; the last line parses and holds at most 1,800 characters; every
+    headline metric is present, finite and > 0, each spread's min and max
+    too; no ``*_error`` key in either line; the record's launch counts (set
+    to 0 at the bench's start) show K1–K6 launched and K7 and BL not.  Then,
+    in this process, the compute section's timed window (BENCH_WINDOW_ITERS
+    batches of B frames enqueued back to back) and one unit of work of the
+    SGM and SLAM-compute sections, each under
+    ``torch.cuda.set_sync_debug_mode("error")``: none may raise, while the
+    same mode does raise on a host read.
+    Returns (its JSON line, the launches by kernel)."""
+    from ros_gpu_stereo_processor_tpu_torch.utils.device import card_line
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    log("bench: the JAX bench's defaults (B 8, 64 e2e frames, 24 SLAM frames, 3 repeats), "
+        "not cut")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ros_gpu_stereo_processor_tpu_torch.bench"],
+                          capture_output=True, text=True, cwd=here, env=env,
+                          timeout=BENCH_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or len(lines) < 2:
+        raise AssertionError(f"bench: exit {proc.returncode}\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    record, last = json.loads(lines[-2]), lines[-1]
+    head = json.loads(last)
+    log(f"bench ({secs:.1f} s) record: {lines[-2]}")
+    log(f"bench headline ({len(last)} characters): {last}")
+    if len(last) > bench.HEADLINE_MAX_CHARS:
+        raise AssertionError(f"bench: the headline has {len(last)} characters")
+    errors = [k for k in list(record) + list(head) if k.endswith("_error")]
+    if errors:
+        raise AssertionError(f"bench: {errors}")
+    for k in bench.HEADLINE_METRICS:
+        vals = [head.get(k)]
+        if k in bench.SPREADS:
+            vals += list(head.get(bench.SPREADS[k], {"min": None}).values())
+        if not all(isinstance(v, (int, float)) and np.isfinite(v) and v > 0 for v in vals):
+            raise AssertionError(f"bench: {k} = {vals} (not all finite and > 0)")
+    if record["kernels"] != "cuda" or record["device"]["card"] != card_line():
+        raise AssertionError(f"bench: kernels {record['kernels']}, device {record['device']}")
+    by_symbol = record["kernel_launches"]
+    launches = {k: by_symbol.get(SOURCES[k][0], 0) for k in SOURCES}
+    if not all(launches[k] > 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")) or \
+            launches["K7"] or launches["BL"]:
+        raise AssertionError(f"bench: launches {launches}")
+    log(f"bench launches: {launches}")
+
+    # the sections' units of work, in this process: no host sync inside
+    model, left, right = bench._model_and_frame()
+    cfg = bench._bench_config()
+    B = 8
+    lefts = torch.from_numpy(np.stack([left] * B)).to(dev)
+    rights = torch.from_numpy(np.stack([right] * B)).to(dev)
+    run = bench._frame_runner(model, cfg, port.Outputs.of("disparity", "pointcloud"), dev)
+    sgm = bench._sgm_runner(port.StereoBMConfig(num_disparities=64, block_size=15,
+                                                texture_threshold=10))
+    chain = bench._slam_chain(model, cfg, dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.ones(1, device=dev).sum().item()
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("set_sync_debug_mode('error') let a host read through")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for name, fn in (
+            (f"the compute window ({BENCH_WINDOW_ITERS} batches of {B} frames)",
+             lambda: bench._enqueue_batches(run, lefts, rights, BENCH_WINDOW_ITERS)),
+            (f"one SGM batch of {B} frames at 64 disparities", lambda: sgm(lefts, rights).sum()),
+            (f"one SLAM-compute chain over {B} frames",
+             lambda: bench._slam_checksum(chain(lefts, rights)))):
+        fn()                    # warm: first-call allocations and caches off the window
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            total = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(total)):
+            raise AssertionError(f"bench, {name}: checksum {float(total)}")
+        log(f"bench: {name} enqueued under set_sync_debug_mode('error') with no host "
+            f"sync; checksum {float(total)}")
+    return ({"path": "bench", "seconds": secs, "headline": head,
+             "stage_ms": record.get("stage_ms"),
+             "roofline_pct_of_bound": {k: v["pct_of_bound"]
+                                       for k, v in record["roofline"].items()
+                                       if isinstance(v, dict)},
+             "kernel_launches": launches}, launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -1350,6 +1420,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import ros_gpu_stereo_processor_tpu_torch as port
+    from ros_gpu_stereo_processor_tpu_torch import bench
     from ros_gpu_stereo_processor_tpu_torch.ops import (
         _build, remap, remap_kernel, sgm_kernel, speckle, speckle_kernel, stereobm,
         stereobm_kernel,
@@ -1359,6 +1430,8 @@ def main() -> int:
     from ros_gpu_stereo_processor_tpu_torch.parallel.mesh import make_mesh
     from ros_gpu_stereo_processor_tpu_torch.ops import color
     from ros_gpu_stereo_processor_tpu_torch.utils import calib, evaluate, io, synth, timing
+    from ros_gpu_stereo_processor_tpu_torch.utils import roofline as rl
+    from ros_gpu_stereo_processor_tpu_torch.utils.device import card_line
 
     # the port uses no convolution and no matrix product; both TF32
     # switches are off all the same, so no library path can round
@@ -1377,7 +1450,7 @@ def main() -> int:
         lib = _build.build(verbose=True)
         log(f"build: {lib.name}")
 
-    model = euroc_like_model(calib)
+    model = calib.euroc_like_model()
     maps = torch.from_numpy(model.rect_maps_stacked()).to(dev)
     results = {}
 
@@ -1417,7 +1490,8 @@ def main() -> int:
             return F.grid_sample(img_f, grid, mode="bilinear", padding_mode="zeros",
                                  align_corners=True)
 
-        b_ms, by = bound(2 * H * W * (1 + 8 + 1), 20 * 2 * H * W)
+        work = rl.remap_model(H, W)
+        b_ms, by = rl.bound(work["bytes"], work["ops"])
         lib_dev_ms, _ = device_cost(torch, library, KERNEL_REPS)
         odd = maps[:, :, :W - 1].contiguous()
         odd_dev_ms, _ = device_cost(torch, lambda: remap_kernel.rectify(mono, odd), KERNEL_REPS,
@@ -1468,7 +1542,8 @@ def main() -> int:
                 require_equal(f"K2 band {nm} refine={c.refine_disparity}", a, b)
         band_dev_ms, _ = device_cost(torch, lambda: stereobm_kernel.fused_raw(lb, rb, base),
                                      KERNEL_REPS, launches=1)
-        b_ms, by = bound(5 * H * W * 4, 8 * H * W * base.num_disparities)
+        work = rl.stereobm_fused_model(H, W, base.num_disparities)
+        b_ms, by = rl.bound(work["bytes"], work["ops"])
         results["K2"] = {
             "max_abs_err": max(errs),
             **timed(torch, lambda: stereobm_kernel.fused_raw(lf, rf, base),
@@ -1488,7 +1563,8 @@ def main() -> int:
             torch, "K3 labels", lambda k: speckle_kernel.labels(disp, valid, sp.max_diff, k),
             lambda k: speckle._labels_scan(disp, valid, sp.max_diff, k),
             sp.propagation_iters)
-        b_ms, by = bound(H * W * (4 + 1 + 4), 2 * 2 * rounds * H * W)
+        work = rl.speckle_model(H, W, rounds)
+        b_ms, by = rl.bound(work["bytes"], work["ops"])
         results["K3"] = {
             "max_abs_err": err,
             **timed(torch, lambda: speckle_kernel.labels(
@@ -1504,7 +1580,7 @@ def main() -> int:
     with phase("K4-K6", seconds):
         for nd, p1, p2 in ((64, 10.0, 120.0), (64, 7.5, 93.25), (128, 10.0, 120.0)):
             cfg = port.StereoBMConfig(num_disparities=nd, block_size=15)
-            res = check_sgm_kernels(torch, sgm_kernel, stereobm, rect, cfg, p1, p2)
+            res = check_sgm_kernels(torch, sgm_kernel, stereobm, rl, rect, cfg, p1, p2)
             storage = sgm_kernel.storage_dtypes(cfg, p1, p2, True)
             log(f"SGM kernels exact at {nd} disparities, P1 {p1}, P2 {p2}, storage "
                 f"{storage}: " + json.dumps(res))
@@ -1513,7 +1589,7 @@ def main() -> int:
     # -- K7 + band label rounds ------------------------------------------
     with phase("K7", seconds):
         mesh = make_mesh(BANDS, devices=[dev] * BANDS)
-        res = check_k7(torch, speckle, speckle_kernel, frontend, mesh, disp, valid, sp)
+        res = check_k7(torch, speckle, speckle_kernel, frontend, rl, mesh, disp, valid, sp)
         log("K7 max-propagation and band label rounds: exact; " + json.dumps(res))
         results.update(res)
 
@@ -1698,6 +1774,11 @@ def main() -> int:
                      for s in ("left", "right")]
             line, launches["cli"] = run_cli(io, yamls, frames, served[0], work)
             e2e.append(line)
+
+    # -- the port's bench ---------------------------------------------------------
+    with phase("bench", seconds):
+        line, launches["bench"] = run_bench(torch, port, bench, dev)
+        e2e.append(line)
 
     kernels = []
     for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "BL"):

@@ -12,7 +12,8 @@ subcommands:
                    ``cv2``; ≙ the side-by-side test_node.launch);
   * ``slam``     — the SLAM engine over an EuRoC sequence;
   * ``serve``    — the watch-dir serve daemon (runtime/serve.py);
-  * ``bench``    — not ported yet (ROADMAP.md, Queue 1 item 8).
+  * ``bench``    — the streaming benchmark (bench.py): one JSON record line,
+                   then a headline of at most 1,800 characters.
 
 Every subcommand runs on the card unless ``--device cpu`` is given; without
 CUDA the default raises.  Block-matcher flags mirror the dynamic_reconfigure
@@ -445,9 +446,9 @@ def cmd_serve(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    raise NotImplementedError(
-        "the port's benchmark is not written yet (ROADMAP.md, Queue 1 item 8); "
-        "chip_smoke.py drives and times every path on the card meanwhile")
+    from ros_gpu_stereo_processor_tpu_torch import bench
+
+    return bench.main(["--device", args.device])
 
 
 def main(argv=None) -> int:
@@ -525,6 +526,8 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("bench")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the bench runs (default: the card)")
     p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)

@@ -112,12 +112,19 @@ def _pipeline_step(
     def rectify(images: Dict[str, torch.Tensor]) -> Dict:
         # every requested side in one remap launch (per band on a mesh)
         sides = list(images)
-        idx = [SIDES.index(s) for s in sides]
         stack = torch.stack([images[s] for s in sides])
+
+        def side_maps(m):
+            # slices, not a list index: indexing by a list first copies the
+            # list to the device, which makes the host wait for the stream
+            if len(sides) == 2:
+                return m if sides == list(SIDES) else m.flip(0)
+            i = SIDES.index(sides[0])
+            return m[i:i + 1]
+
         if mesh is None:
-            maps = rect_maps if idx == [0, 1] else rect_maps[idx]
-            return dict(zip(sides, remap_kernel.rectify(stack, maps)))
-        maps = [m if idx == [0, 1] else m[idx] for m in band_maps]
+            return dict(zip(sides, remap_kernel.rectify(stack, side_maps(rect_maps))))
+        maps = [side_maps(m) for m in band_maps]
         bands = par.remap_row_sharded(stack, maps, mesh, shard_axis)
         return {s: [b[k] for b in bands] for k, s in enumerate(sides)}
 

@@ -65,7 +65,7 @@ def triangulate_keypoints(
     # depth-discontinuity gate: keypoints on disparity edges (occlusion
     # boundaries, independently-moving silhouettes) triangulate badly —
     # 3×3 disparity range at the keypoint > 2 px ⇒ drop
-    off = torch.tensor([-1, 0, 1], device=xy.device)
+    off = torch.arange(-1, 2, device=xy.device)      # a kernel, not a host copy
     yj = (yi[None, :] + off.repeat_interleave(3)[:, None]).clamp(0, H - 1)
     xj = (xi[None, :] + off.repeat(3)[:, None]).clamp(0, W - 1)
     nb = flat[yj * W + xj]                                   # (9, K)
@@ -351,6 +351,15 @@ class StereoVisualOdometry:
         ev = torch.cuda.Event()
         ev.record()
         return host, ev
+
+    def fetch_frame_host(self, cur: TrackedFrame) -> dict:
+        """Host copies of the per-frame sparse state the map logic needs on
+        keyframes (``pts_cam``, ``pts_valid``, ``desc`` as uint32 words,
+        ``valid``, ``xy``), in ONE batched device→host copy of the packed
+        bundle.  :meth:`complete` already carries them as
+        ``info["frame_host"]``; this is for a frame whose bundle is gone."""
+        bundle = _pack_host_bundle(cur.kp, cur.pts_cam, cur.pts_valid)
+        return _unpack_host_bundle(bundle.cpu().numpy(), False)[0]
 
     def complete(self, pending) -> dict:
         """Wait for a dispatched frame's bundle and update the host pose.

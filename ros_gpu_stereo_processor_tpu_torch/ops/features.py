@@ -39,6 +39,18 @@ _CIRCLE = np.array(
     np.int32,
 )
 _MARGIN = 16
+_DEVICE_TABLES: dict = {}
+
+
+def _on_device(name: str, table: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The constant ``table`` on ``device``, copied there once per device: a
+    copy from host memory in every frame would make the host wait for the
+    device's queue each time."""
+    key = (name, device)
+    t = _DEVICE_TABLES.get(key)
+    if t is None:
+        t = _DEVICE_TABLES[key] = torch.from_numpy(table).to(device)
+    return t
 
 
 class Keypoints(NamedTuple):
@@ -56,8 +68,8 @@ def _circle_taps(x: torch.Tensor) -> torch.Tensor:
     (border pixels never become corners — the margin masks them)."""
     H, W = x.shape
     dev = x.device
-    dy = torch.from_numpy(_CIRCLE[:, 0].astype(np.int64)).to(dev)[:, None, None]
-    dx = torch.from_numpy(_CIRCLE[:, 1].astype(np.int64)).to(dev)[:, None, None]
+    dy = _on_device("circle_dy", _CIRCLE[:, 0].astype(np.int64), dev)[:, None, None]
+    dx = _on_device("circle_dx", _CIRCLE[:, 1].astype(np.int64), dev)[:, None, None]
     ys = (torch.arange(H, device=dev)[None, :, None] + dy).clamp(0, H - 1)
     xs = (torch.arange(W, device=dev)[None, None, :] + dx).clamp(0, W - 1)
     return x.reshape(-1)[ys * W + xs]
@@ -205,8 +217,8 @@ def extract_patches(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
 def orientations_from_patches(patches: torch.Tensor) -> torch.Tensor:
     """ORB intensity-centroid angle.  On integer images every moment is an
     integer below 2^24, so the float32 sums are exact in any order."""
-    mx = torch.from_numpy(_MASK_X).to(patches.device)
-    my = torch.from_numpy(_MASK_Y).to(patches.device)
+    mx = _on_device("mask_x", _MASK_X, patches.device)
+    my = _on_device("mask_y", _MASK_Y, patches.device)
     m10 = (patches * mx).sum((-2, -1))
     m01 = (patches * my).sum((-2, -1))
     return torch.atan2(m01, m10)
@@ -234,7 +246,7 @@ def describe_from_patches(patches: torch.Tensor, angle: torch.Tensor) -> torch.T
     K = patches.shape[0]
     flat = patches.reshape(K, -1)                            # (K, 1024)
     bins = _steering_bins(angle)                             # (K,)
-    idx = torch.from_numpy(_BIN_IDX.astype(np.int64)).to(patches.device)
+    idx = _on_device("bin_idx", _BIN_IDX.astype(np.int64), patches.device)
     # the taps of the keypoint's own bin: (K, 256) each
     i1 = idx[bins, 0]
     i2 = idx[bins, 1]

@@ -14,6 +14,7 @@ value.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -68,3 +69,9 @@ def point_cloud(
     if rgb is not None:
         out["rgb"] = pack_rgb_float(rgb)
     return out
+
+
+def is_valid_point(xyz: np.ndarray) -> np.ndarray:
+    """Host-side validity of fetched points, the reference's isValidPoint:
+    (…, 3) → (…) bool, every coordinate finite (an invalid point is NaN)."""
+    return np.isfinite(xyz).all(axis=-1)

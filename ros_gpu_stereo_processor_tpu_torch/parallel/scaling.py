@@ -27,6 +27,7 @@ import torch
 
 from ros_gpu_stereo_processor_tpu_torch.config import StereoBMConfig
 from ros_gpu_stereo_processor_tpu_torch.parallel.mesh import make_mesh
+from ros_gpu_stereo_processor_tpu_torch.utils.calib import euroc_like_model
 
 
 def _sync(devices) -> None:
@@ -142,24 +143,6 @@ def measure_scaling(
     return out
 
 
-def _euroc_like_model(width: int, height: int):
-    """The distorted EuRoC-like calibration of ``__graft_entry__``
-    (D = [-0.37, 0.11, 0, 0, 0]), scaled to ``width`` × ``height``."""
-    from ros_gpu_stereo_processor_tpu_torch.utils.calib import CameraCalib, StereoCameraModel
-
-    s = width / 752.0
-    K = np.array([[460.0 * s, 0, width / 2], [0, 460.0 * s, height / 2], [0, 0, 1.0]])
-    P = np.hstack([np.array([[441.0 * s, 0, width / 2 - 54 * s],
-                             [0, 441.0 * s, height / 2 - 10 * s], [0, 0, 1.0]]),
-                   np.zeros((3, 1))])
-    Pr = P.copy()
-    Pr[0, 3] = -44.1 * s
-    D = np.array([-0.37, 0.11, 0.0, 0.0, 0.0])
-    return StereoCameraModel.from_calibs(
-        *(CameraCalib(width, height, K, D, np.eye(3), PP, nm)
-          for PP, nm in ((P, "left"), (Pr, "right"))))
-
-
 def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None, height: int = 480,
                      width: int = 752) -> Dict:
     """One pass over every multi-device path on a mesh of ``n_devices``
@@ -199,7 +182,7 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None, height:
 
     # -- 1. the full pipeline by row bands --------------------------------
     H = height if height % n == 0 else 60 * n
-    model = _euroc_like_model(width, H)
+    model = euroc_like_model(width, H)
     rng = np.random.default_rng(0)
     left = rng.integers(0, 255, (H, width), np.uint8)
     right = rng.integers(0, 255, (H, width), np.uint8)

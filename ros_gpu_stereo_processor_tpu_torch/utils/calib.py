@@ -343,3 +343,21 @@ class StereoCameraModel:
         d = np.asarray(disparity, np.float64) - self.disparity_offset
         with np.errstate(divide="ignore", invalid="ignore"):
             return self.fx * self.baseline / d
+
+
+def euroc_like_model(width: int = 752, height: int = 480) -> StereoCameraModel:
+    """The distorted EuRoC-like calibration of the JAX bench's
+    ``__graft_entry__._model_and_frame`` (752×480: K fx 460 at the image
+    centre, P fx 441 at (322, 230), baseline 0.1 m, D = [-0.37, 0.11, 0, 0,
+    0]), scaled to ``width`` × ``height``."""
+    s = width / 752.0
+    K = np.array([[460.0 * s, 0, width / 2], [0, 460.0 * s, height / 2], [0, 0, 1.0]])
+    P = np.hstack([np.array([[441.0 * s, 0, width / 2 - 54 * s],
+                             [0, 441.0 * s, height / 2 - 10 * s], [0, 0, 1.0]]),
+                   np.zeros((3, 1))])
+    Pr = P.copy()
+    Pr[0, 3] = -44.1 * s
+    D = np.array([-0.37, 0.11, 0.0, 0.0, 0.0])
+    return StereoCameraModel.from_calibs(
+        *(CameraCalib(width, height, K, D, np.eye(3), PP, nm)
+          for PP, nm in ((P, "left"), (Pr, "right"))))

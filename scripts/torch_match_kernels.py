@@ -37,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import runpy
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -62,6 +63,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     import chip_smoke           # this checkout's helpers, before --root is on the path
+    # this checkout's card_line, read from its file: the package is imported
+    # from --root below, which may be a checkout without it
+    card_line = runpy.run_path(
+        os.path.join(ROOT, "ros_gpu_stereo_processor_tpu_torch", "utils", "device.py"))["card_line"]
 
     H, W, band_rows = chip_smoke.H, chip_smoke.W, chip_smoke.BAND_ROWS
     sgm_band_rows = 120 + 2 * 39    # parallel/frontend.py: block_radius + 32 warm-up rows
@@ -140,7 +145,7 @@ def main() -> int:
                     device_ms_by_name(chip_smoke, torch, k4, args.reps, ["sgm_cost"])["sgm_cost"])
         for row in rows.values():
             print(json.dumps(row), flush=True)
-    print(f"card: {chip_smoke.card_line()}")
+    print(f"card: {card_line()}")
     return 0
 
 

@@ -9,7 +9,7 @@ PyTorch built for CUDA.  For each block shape (threads along a row × rows)
 it compiles ``csrc/remap.cu`` alone with ``-DREMAP_BLOCK_X/Y`` and the
 library's nvcc flags, all shapes in parallel, into the package's git-ignored
 ``build/remap_blocks/``, then, at the pipeline's shapes (the 752×480 uint8
-mono pair and RGB pair on the EuRoC-like maps of ``chip_smoke.py``): checks
+mono pair and RGB pair on the maps of ``utils/calib.py::euroc_like_model``): checks
 each variant exact against the plain version, and times it by CUDA events
 over back-to-back direct calls and by the profiler's device time.  The
 shapes are timed in turns (A, B, C, C, B, A) in one process, one JSON line
@@ -45,6 +45,7 @@ def main() -> int:
     import ros_gpu_stereo_processor_tpu_torch as port
     from ros_gpu_stereo_processor_tpu_torch.ops import _build, remap
     from ros_gpu_stereo_processor_tpu_torch.utils import calib
+    from ros_gpu_stereo_processor_tpu_torch.utils.device import card_line
 
     shapes = [tuple(int(v) for v in s.split("x")) for s in args.shapes.split(",")]
     out_dir = _build.BUILD_DIR / "remap_blocks"
@@ -64,7 +65,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     H, W = chip_smoke.H, chip_smoke.W
-    maps = torch.from_numpy(chip_smoke.euroc_like_model(calib).rect_maps_stacked()).to(dev)
+    maps = torch.from_numpy(calib.euroc_like_model().rect_maps_stacked()).to(dev)
     l0, r0, _ = port.synthetic_stereo_pair(H, W, 48, seed=100)
     stacks = {
         "mono": torch.from_numpy(np.stack([l0, r0])).to(dev),
@@ -103,7 +104,7 @@ def main() -> int:
             rows[s][f"{label}_device_launches_per_call"] = per_call
     for s in shapes:
         print(json.dumps(rows[s]), flush=True)
-    print(f"card: {chip_smoke.card_line()}")
+    print(f"card: {card_line()}")
     return 0
 
 

@@ -40,10 +40,11 @@ def main() -> int:
     from ros_gpu_stereo_processor_tpu_torch.parallel import frontend
     from ros_gpu_stereo_processor_tpu_torch.parallel.mesh import make_mesh
     from ros_gpu_stereo_processor_tpu_torch.utils import calib
+    from ros_gpu_stereo_processor_tpu_torch.utils.device import card_line
 
     dev = torch.device("cuda", 0)
     H, W = chip_smoke.H, chip_smoke.W
-    maps = torch.from_numpy(chip_smoke.euroc_like_model(calib).rect_maps_stacked()).to(dev)
+    maps = torch.from_numpy(calib.euroc_like_model().rect_maps_stacked()).to(dev)
     l0, r0, _ = port.synthetic_stereo_pair(H, W, 48, seed=100)
     rect = remap_kernel.rectify(torch.from_numpy(np.stack([l0, r0])).to(dev), maps)
     disp, valid = stereobm_kernel.compute_disparity_fused(rect[0], rect[1],
@@ -76,7 +77,7 @@ def main() -> int:
             row[f"device_ms_at_{k}"] = ms
             row["device_launches_per_call"] = per_call
         print(json.dumps(row), flush=True)
-    print(f"card: {chip_smoke.card_line()}")
+    print(f"card: {card_line()}")
     return 0
 
 

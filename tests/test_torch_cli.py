@@ -1,7 +1,7 @@
 """The port's command line, ``tpu-stereo-torch`` (``cli.py``), on
 ``--device cpu``: ``info``, ``run`` (a pair, an EuRoC sequence, a CPU band
 mesh), ``compare``, ``serve`` with ``--idle-timeout``, ``slam`` on a tiny
-synthetic EuRoC sequence, and ``bench``.  ``run``'s outputs equal the JAX
+synthetic EuRoC sequence, and ``bench`` at a small size.  ``run``'s outputs equal the JAX
 CLI's (``--no-pallas``) on the same files, exactly."""
 
 import json
@@ -116,10 +116,12 @@ def test_run_euroc_matches_jax_cli(tmp_path, calib, capsys):
                                       np.load(os.path.join(out_j, f)))
 
 
-def test_run_band_mesh_and_unported_options(tmp_path, calib):
+def test_run_band_mesh_and_unported_options(tmp_path, calib, monkeypatch, capsys):
     """``--devices 4 --device cpu`` runs the row-band pipeline on a CPU band
     mesh, and ``--shard-mode disp`` the slab matcher on it; both equal one
-    device (speckle off); ``bench`` raises."""
+    device (speckle off); ``bench --device cpu`` runs the port's bench (on
+    tests/test_torch_bench.py's small model, compute and SGM sections) and
+    ends with its headline."""
     root = str(tmp_path / "euroc")
     _make_euroc(root, n_frames=1)
     common = ["run", *calib, "--euroc", root, "--outputs", "disparity", *BM,
@@ -132,8 +134,16 @@ def test_run_band_mesh_and_unported_options(tmp_path, calib):
                      "--shard-mode", "disp"]) == 0
     np.testing.assert_array_equal(np.load(tmp_path / "slab" / "disparity_0000.npy"),
                                   np.load(tmp_path / "one" / "disparity_0000.npy"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli.main(["bench"])
+    from tests.test_torch_bench import use_small_bench   # imports jax
+
+    use_small_bench(monkeypatch, BENCH_E2E="0", BENCH_STAGES="0", BENCH_ROOFLINE="0",
+                    BENCH_SLAM="0")
+    capsys.readouterr()
+    assert cli.main(["bench", "--device", "cpu"]) == 0
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    head = json.loads(last)
+    assert len(last) <= 1800 and head["kernels"] == "plain"
+    assert head["value"] > 0 and head["sgm_ms_64d"] > 0 and head["sgm_ms_128d"] > 0
 
 
 def test_run_requires_input_and_defaults_to_the_card(tmp_path, calib, pair):

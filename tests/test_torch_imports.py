@@ -71,7 +71,8 @@ def test_port_imports_without_jax_or_yaml():
         "from ros_gpu_stereo_processor_tpu_torch.utils import debug\n"
         "from ros_gpu_stereo_processor_tpu_torch.ops import bilateral, color\n"
         "from ros_gpu_stereo_processor_tpu_torch.runtime import ingest, serve\n"
-        "from ros_gpu_stereo_processor_tpu_torch import cli\n"
+        "from ros_gpu_stereo_processor_tpu_torch import bench, cli\n"
+        "from ros_gpu_stereo_processor_tpu_torch.utils import roofline\n"
         "print(p.StereoPipeline.__name__, p.StereoSlam.__name__, p.StereoVisualOdometry.__name__)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
