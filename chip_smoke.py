@@ -79,7 +79,32 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      frame) and on a (kf, rows) 2 × 4 mesh (the pipeline by 4 row bands:
      K1, K2 and K7 four times a frame, never K3): ATE under 0.1 m after
      ``optimize_global``, every frame's position within 1e-4 m of the
-     single-device run, BA ms per keyframe;
+     single-device run, BA ms per keyframe.  Then the hard phases:
+       * the 6-dof homography sequence of tests/test_vo_6dof.py (400×300,
+         fx 350, a plane at 2.5 m, rendered with numpy): VO over 6 frames
+         and ``StereoSlam`` (BM at 16 disparities, speckle off: K1 and K2
+         once a frame) over 8, on the card against the port's CPU run of
+         the same frames (flags exact, poses within 1e-5) and held to that
+         test's bars (VO ATE < 0.02 m and final rotation < 0.02 rad, SLAM
+         ATE < 0.03 m after ``optimize_global(iters=5)``, ≥ 3 keyframes);
+       * the layered scene over SGM (utils/synth.py::render_layered, 752×480,
+         200 frames, rendered in a process pool on a thread that starts
+         before the kernel build; frames 100–101 blurred and darkened,
+         banding 0.08) at scripts/torch_record_ate_hard.py's SGM settings
+         (48 disparities, block 11, texture 10, speckle 200, 4 paths, P1
+         10, P2 120; 512 features, a keyframe every 4 frames, a window of
+         5): ``run_stream(depth=2)``, each frame launching K1 once (both
+         sides in one launch), K3, K4 and K6 once and K5 three times, never
+         K2; then ``detect_loop_closures`` and ``optimize_global``; fails
+         unless a frame is lost, one relocalizes, a closure is found and
+         the ATE after ``optimize_global`` is under 0.1 m; prints keyframes,
+         lost, relocalized, closures detected and used, ATE before and
+         after, median and p95 ms a frame, BA ms per keyframe,
+         ``optimize_global`` ms and the render seconds; the card's first 8
+         frames against the port's CPU run of them (as in the SLAM phase),
+         the bench's SLAM-compute chain over them under
+         ``set_sync_debug_mode("error")`` (no host sync with SGM inside),
+         and device launches and busy share per frame over 5;
   6. runs the multi-process worker (parallel/multihost.py) at 752×480, BM
      defaults, as 2 processes × 2 bands on ``cuda:0`` over gloo: ``DENSE``
      (row-band matcher and speckle filter, fed host-locally through the
@@ -194,6 +219,12 @@ KERNEL_REPS = 20
 PLAIN_REPS = 3
 PROFILER_WINDOWS = 8   # windows tried when the profiler drops a window's events
 BENCH_TIMEOUT_S = 600
+HARD_FRAMES = 200   # the layered scene over SGM: scripts/torch_record_ate_hard.py's SGM record
+HARD_COMPARED = 8   # its first frames, also run on the CPU and compared
+SIXDOF = dict(width=400, height=300, fx=350.0, baseline=0.1, Z0=2.5)   # tests/test_vo_6dof.py
+SIXDOF_VO_FRAMES = 6
+SIXDOF_SLAM_FRAMES = 8
+SIXDOF_BARS = (0.02, 0.02, 0.03)   # m, rad, m: VO ATE, VO final rotation, SLAM ATE
 BENCH_WINDOW_ITERS = 10   # the compute section's BENCH_ITERS
 H, W = 480, 752
 
@@ -555,46 +586,79 @@ def check_k7(torch, speckle, speckle_kernel, frontend, rl, mesh, disp, valid, sp
     return out
 
 
-def planar_model(calib, fx=441.0, baseline=0.11):
-    """The camera of the port's planar synthetic sequence (utils/synth.py):
-    pinhole, no distortion, the principal point at the image centre."""
-    K = np.array([[fx, 0, W / 2], [0, fx, H / 2], [0, 0, 1.0]])
+def planar_model(calib, fx=441.0, baseline=0.11, width=None, height=None):
+    """The camera of the port's synthetic sequences (utils/synth.py), W×H
+    unless given: pinhole, no distortion, the principal point at the image
+    centre."""
+    width, height = width or W, height or H
+    K = np.array([[fx, 0, width / 2], [0, fx, height / 2], [0, 0, 1.0]])
     P = np.hstack([K, np.zeros((3, 1))])
     Pr = P.copy()
     Pr[0, 3] = -fx * baseline
 
     def mk(PP, name):
-        return calib.CameraCalib(W, H, K, np.zeros(5), np.eye(3), PP, name)
+        return calib.CameraCalib(width, height, K, np.zeros(5), np.eye(3), PP, name)
 
     return calib.StereoCameraModel.from_calibs(mk(P, "left"), mk(Pr, "right"))
 
 
-def start_rendering(synth):
-    """Render the SLAM sequence on a thread (numpy; it overlaps the kernel
-    build).  Returns a function that waits for it and returns ([(left,
-    right, stamp)], ground truth)."""
+def start_rendering(name, render):
+    """Run ``render()`` on a thread (numpy; it overlaps the kernel build and
+    the phases before its frames are needed).  Returns a function that waits
+    for it and returns what ``render`` returned."""
     import threading
 
     out = {}
 
     def run():
         try:
-            lefts, rights, gt = synth.render_planar(SLAM_FRAMES, W, H, 441.0, 0.11, 3.0,
-                                                    10.0, 0)
-            out["frames"] = (list(zip(lefts, rights, gt.stamps)), gt)
+            out["result"] = render()
         except BaseException as e:       # re-raised by the waiter
             out["error"] = e
 
-    th = threading.Thread(target=run, name="render-slam-frames")
+    th = threading.Thread(target=run, name=name)
     th.start()
 
     def wait():
         th.join()
         if "error" in out:
             raise out["error"]
-        return out["frames"]
+        return out["result"]
 
     return wait
+
+
+def render_planar(synth):
+    """The SLAM sequence: ([(left, right, stamp)], ground truth)."""
+    lefts, rights, gt = synth.render_planar(SLAM_FRAMES, W, H, 441.0, 0.11, 3.0, 10.0, 0)
+    return list(zip(lefts, rights, gt.stamps)), gt
+
+
+def render_hard(synth, hard):
+    """The hard phase's sequences: the layered scene of the SGM record
+    (HARD_FRAMES frames at W×H, ``hard``: scripts/torch_record_ate_hard.py)
+    rendered in a process pool, and the 6-dof homography sequence.  Returns
+    (([(left, right, stamp)], ground truth, render s, workers), 6-dof
+    (lefts, rights, poses))."""
+    workers = max(2, (os.cpu_count() or 4) - 2)
+    t0 = time.perf_counter()
+    lefts, rights, gt = synth.render_layered(
+        workers=workers, **hard.scene_kwargs(HARD_FRAMES, W, H, occluders=0))
+    render_s = time.perf_counter() - t0
+    sixdof = synth.render_6dof(SIXDOF_SLAM_FRAMES, SIXDOF["width"], SIXDOF["height"],
+                               SIXDOF["fx"], SIXDOF["baseline"], SIXDOF["Z0"], seed=0)
+    return (list(zip(lefts, rights, gt.stamps)), gt, render_s, workers), sixdof
+
+
+def load_script(name):
+    """scripts/<name>.py of this checkout as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def slam_steps(torch, slam, frames):
@@ -609,12 +673,13 @@ def slam_steps(torch, slam, frames):
 
 
 def same_slam_frame(torch, features, got, want, label, keypoints=True):
-    """One SLAM frame of the card against the CPU run's: flags and match
-    counts exact, poses within SLAM_POSE_ATOL; keypoints exact, descriptors
-    exact where the steering bins agree (≤ 1 % of keypoints may differ)."""
+    """One SLAM (or VO) frame of the card against the CPU run's: flags (those
+    the info carries) and match counts exact, poses within SLAM_POSE_ATOL;
+    keypoints exact, descriptors exact where the steering bins agree (≤ 1 %
+    of keypoints may differ)."""
     g, w = got["info"], want["info"]
     for f in SLAM_FLAGS:
-        if g[f] != w[f]:
+        if f in w and g[f] != w[f]:
             raise AssertionError(f"{label}: {f} {g[f]} on the card, {w[f]} on the CPU")
     for f in ("R_wc", "t_wc"):
         d = float(np.abs(g[f] - w[f]).max())
@@ -631,14 +696,14 @@ def same_slam_frame(torch, features, got, want, label, keypoints=True):
         raise AssertionError(f"{label}: descriptors differ")
 
 
-def slam_profile(torch, timing, port, model, frames, dev, log_dir):
-    """Device launches and busy ms per SLAM frame: ``torch.profiler`` over
-    SLAM_PROFILED synchronous steps after 10 warm frames (the next window,
-    while frames last, if the profiler recorded no device time).  Returns (launches, busy ms, wall
-    ms) per frame."""
+def slam_profile(torch, timing, slam, frames, log_dir, label="slam"):
+    """Device launches and busy ms per SLAM frame of the fresh engine
+    ``slam``: ``torch.profiler`` over SLAM_PROFILED synchronous steps after
+    10 warm frames (the next window, while frames last, if the profiler
+    recorded no device time).  Returns (launches, busy ms, wall ms) per
+    frame."""
     from torch.profiler import ProfilerActivity, profile
 
-    slam = port.StereoSlam(model, device=dev)
     for left, right, stamp in frames[:10]:
         slam.step(left, right, stamp)
     for start in range(10, len(frames) - SLAM_PROFILED + 1, SLAM_PROFILED):
@@ -658,10 +723,9 @@ def slam_profile(torch, timing, port, model, frames, dev, log_dir):
             break
     else:
         raise AssertionError("the profiler recorded no device time in any SLAM window")
-    slam.pipeline.senders.shutdown()
     n = len(window)
     busy = sum(r[2] for r in rows)
-    log(f"profile slam over {n} frames: wall {wall_ms / n:.3f} ms/frame, device busy "
+    log(f"profile {label} over {n} frames: wall {wall_ms / n:.3f} ms/frame, device busy "
         f"{busy / n:.3f} ms/frame ({100 * busy / wall_ms:.1f} %), "
         f"{sum(r[1] for r in rows) / n:.0f} kernels and copies/frame")
     for key, count, ms in sorted(rows, key=lambda r: -r[2])[:15 if log_dir else 8]:
@@ -726,7 +790,7 @@ def run_slam(torch, port, _build, features, timing, evaluate, calib, frames, gt,
         f"match counts {[r['info']['n_matches'] for r in cpu]}, keyframes, poses)")
 
     launches_per_frame, busy_ms, prof_wall_ms = slam_profile(
-        torch, timing, port, model, frames, dev,
+        torch, timing, engine(device=dev), frames,
         os.path.join(profile_dir, "slam") if profile_dir else None)
 
     # the tracking/mapping split against synchronous stepping
@@ -1021,6 +1085,165 @@ def run_slam_meshes(torch, port, _build, evaluate, calib, make_mesh, frames, gt,
             "ate_after_m": ate, "loop_closures": closures,
             "max_position_diff_vs_one_device_m": pose_diff, "kernel_launches": launches[label]})
     return lines, launches
+
+
+def run_6dof(torch, port, _build, features, calib, evaluate, sixdof, dev, kernels):
+    """tests/test_vo_6dof.py's sequences (rendered with numpy) on the card
+    against the port's CPU run of the same frames (flags exact, poses within
+    SLAM_POSE_ATOL) and held to that test's bars: VO over SIXDOF_VO_FRAMES
+    frames (512 features, ``min_matches=10``, the plane's constant
+    disparity; ATE and final rotation error), then ``StereoSlam`` over
+    SIXDOF_SLAM_FRAMES (384 features, a keyframe every 2nd frame, a window
+    of 3, 96 BA landmarks; BM at 16 disparities, block 9, texture 5, speckle
+    off: K1 and K2 once a frame, no other kernel; ATE after
+    ``optimize_global(iters=5)``, at least 3 keyframes).  Returns (its JSON
+    line, launches)."""
+    lefts, rights, poses = sixdof
+    w, h, fx, b, z0 = (SIXDOF[k] for k in ("width", "height", "fx", "baseline", "Z0"))
+    model = planar_model(calib, fx, b, w, h)
+    vo_bar, rot_bar, slam_bar = SIXDOF_BARS
+    disp = np.full((h, w), fx * b / z0, np.float32)
+
+    def vo_run(d):
+        odo = port.StereoVisualOdometry(model, num_features=512, min_matches=10, device=d)
+        return [odo.step(left, disp) for left in lefts[:SIXDOF_VO_FRAMES]], odo.state.R_wc
+
+    (vo_card, R_last), (vo_cpu, _) = vo_run(dev), vo_run("cpu")
+    for i, (g, c) in enumerate(zip(vo_card, vo_cpu)):
+        same_slam_frame(torch, features, {"info": g}, {"info": c}, f"6-dof VO frame {i}",
+                        keypoints=False)
+        if i and not g["tracked"]:
+            raise AssertionError(f"6-dof VO frame {i} lost")
+    stamps = np.arange(SIXDOF_VO_FRAMES) * 0.1
+    gt_t = np.asarray([t for _, t in poses[:SIXDOF_VO_FRAMES]])
+    est = np.stack([g["t_wc"] for g in vo_card])
+    vo_ate = evaluate.ate_rmse(evaluate.Trajectory(stamps, est), evaluate.Trajectory(stamps, gt_t))
+    R_err = R_last.T @ poses[SIXDOF_VO_FRAMES - 1][0]
+    vo_rot = float(np.arccos(np.clip((np.trace(R_err) - 1) / 2, -1, 1)))
+    if not (vo_ate < vo_bar and vo_rot < rot_bar):
+        raise AssertionError(f"6-dof VO: ATE {vo_ate} m (bar {vo_bar}), rotation {vo_rot} rad "
+                             f"(bar {rot_bar})")
+
+    cfg = port.SlamConfig(num_features=384, keyframe_every=2, window_size=3, ba_landmarks=96)
+    pcfg = port.PipelineConfig(
+        stereobm=port.StereoBMConfig(num_disparities=16, block_size=9, texture_threshold=5),
+        speckle=port.SpeckleConfig(max_speckle_size=0))
+    frames = [(lft, rgt, 0.1 * i) for i, (lft, rgt) in enumerate(zip(lefts, rights))]
+    slam, cpu_slam = (port.StereoSlam(model, cfg, pcfg, device=d) for d in (dev, "cpu"))
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    card = [slam.step(*f) for f in frames]
+    torch.cuda.synchronize()
+    launches = {k: kern.launches for k, kern in kernels.items()}
+    n = len(frames)
+    for k, got in launches.items():
+        if got != (n if k in ("K1", "K2") else 0):
+            raise AssertionError(f"6-dof SLAM: {k} launched {got} times over {n} frames")
+    for i, (f, g) in enumerate(zip(frames, card)):
+        same_slam_frame(torch, features, {"info": g}, {"info": cpu_slam.step(*f)},
+                        f"6-dof SLAM frame {i}", keypoints=False)
+        if i and not g["tracked"]:
+            raise AssertionError(f"6-dof SLAM frame {i} lost")
+    slam.optimize_global(iters=5)
+    traj = slam.trajectory()
+    slam_ate = evaluate.ate_rmse(
+        evaluate.Trajectory(traj.stamps, traj.t),
+        evaluate.Trajectory(np.arange(n) * 0.1, np.asarray([t for _, t in poses])))
+    if not (slam_ate < slam_bar and len(slam.store) >= 3):
+        raise AssertionError(f"6-dof SLAM: ATE {slam_ate} m (bar {slam_bar}), "
+                             f"{len(slam.store)} keyframes")
+    for s in (slam, cpu_slam):
+        s.pipeline.senders.shutdown()
+    log(f"6-dof: VO over {SIXDOF_VO_FRAMES} frames and SLAM over {n} match the CPU run; "
+        f"VO ATE {vo_ate:.5f} m, rotation {vo_rot:.5f} rad; SLAM ATE {slam_ate:.5f} m, "
+        f"{len(slam.store)} keyframes; launches {launches}")
+    return {"path": "hard_6dof", "vo_frames": SIXDOF_VO_FRAMES, "vo_ate_m": vo_ate,
+            "vo_rotation_err_rad": vo_rot, "slam_frames": n, "slam_ate_m": slam_ate,
+            "slam_keyframes": len(slam.store),
+            "vo_matches": [g["n_matches"] for g in vo_card],
+            "kernel_launches": launches}, launches
+
+
+def run_hard(torch, port, _build, features, timing, calib, bench, hard, rendered, dev,
+             kernels, profile_dir):
+    """The layered scene over SGM at W×H (scripts/torch_record_ate_hard.py's
+    SGM record, ``hard``: 48 disparities, block 11, texture 10, speckle 200,
+    4 paths, P1 10, P2 120; 512 features, a keyframe every 4 frames, a
+    window of 5; frames HARD_FRAMES/2 and HARD_FRAMES/2 + 1 degraded, no
+    occluders, banding 0.08): ``run_stream(depth=2)`` over every frame with
+    the counts set to 0 just before and read just after (each frame
+    launches K1 once, for both sides, K3, K4 and K6 once and K5 three
+    times; K2, K7 and BL never); then ``detect_loop_closures`` and
+    ``optimize_global``.  Fails unless a frame was lost, one relocalized, a
+    closure was found and the ATE after ``optimize_global`` is under
+    ATE_GATE_M.  Then the card's first HARD_COMPARED frames against the
+    port's CPU run of them (as the SLAM phase compares), the bench's
+    SLAM-compute chain (the frame step and VO) over those frames at these
+    settings under ``torch.cuda.set_sync_debug_mode("error")`` (SGM inside
+    the chain makes no host sync), and a profiler window.  Returns (its JSON
+    line, launches)."""
+    frames, gt, render_s, workers = rendered
+    model = planar_model(calib, fx=441.0, baseline=0.1)
+    n = len(frames)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    slam, rec = hard.run_slam(port, frames, gt, model, "sgm", dev)
+    torch.cuda.synchronize()
+    launches = {k: kern.launches for k, kern in kernels.items()}
+    log(f"hard launches over {n} frames: {launches}")
+    want = {"K1": n, "K2": 0, "K3": n, "K4": n, "K5": 3 * n, "K6": n, "K7": 0, "BL": 0}
+    for k, w in want.items():
+        if launches[k] != w:
+            raise AssertionError(f"hard: {k} launched {launches[k]} times, not {w}")
+    if rec["frames_run"] != n:
+        raise AssertionError(f"hard: {rec['frames_run']} frames of {n} completed")
+    bad = hard.gate(rec)
+    if rec["lost_frames"] < 1:
+        bad.append("no frame lost")
+    if bad:
+        raise AssertionError(f"hard: {', '.join(bad)}: {rec}")
+    log(f"hard: {rec['keyframes']} keyframes, {rec['lost_frames']} lost, "
+        f"{rec['relocalized_frames']} relocalized, {rec['loop_closures_detected']} closures "
+        f"({rec['loop_closures_used']} used), ATE {rec['ate_rmse_m_before_global']:.5f} m "
+        f"before optimize_global and {rec['ate_rmse_m_after_global']:.5f} m after")
+
+    # the card's first frames against the port's CPU run of them
+    slam_cfg, pipe_cfg = hard.configs(port, "sgm")
+    slams = [slam] + [port.StereoSlam(model, slam_cfg, pipe_cfg, device=d)
+                      for d in (dev, "cpu", dev)]
+    card = slam_steps(torch, slams[1], frames[:HARD_COMPARED])
+    cpu = slam_steps(torch, slams[2], frames[:HARD_COMPARED])
+    for i, (g, w) in enumerate(zip(card, cpu)):
+        same_slam_frame(torch, features, g, w, f"hard frame {i}")
+    log(f"hard: the card's first {HARD_COMPARED} frames match the CPU run (keypoints, "
+        f"match counts {[r['info']['n_matches'] for r in cpu]}, keyframes, poses)")
+    chain = bench._slam_chain(model, pipe_cfg, dev)
+    lefts, rights = (bench._on(dev, [f[k] for f in frames[:HARD_COMPARED]]) for k in (0, 1))
+    bench._slam_checksum(chain(lefts, rights))     # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        total = bench._slam_checksum(chain(lefts, rights))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not bool(torch.isfinite(total)):
+        raise AssertionError(f"hard: SLAM-compute chain checksum {float(total)}")
+    log(f"hard: the SGM SLAM-compute chain over {HARD_COMPARED} frames enqueued under "
+        f"set_sync_debug_mode('error') with no host sync; checksum {float(total)}")
+    launches_per_frame, busy_ms, prof_wall_ms = slam_profile(
+        torch, timing, slams[3], frames,
+        os.path.join(profile_dir, "hard") if profile_dir else None, "hard")
+    for s in slams:
+        s.pipeline.senders.shutdown()
+    line = {"path": "hard", "frames": n, "size": [W, H], "matcher": "sgm",
+            **{k: v for k, v in rec.items() if k != "frames_run"},
+            "render_seconds": render_s, "render_workers": workers,
+            "device_launches_per_frame": launches_per_frame,
+            "device_busy_ms_per_frame": busy_ms,
+            "device_busy_share": busy_ms / prof_wall_ms,
+            "profiled_wall_ms_per_frame": prof_wall_ms,
+            "kernel_launches": launches}
+    return line, launches
 
 
 def _free_port() -> int:
@@ -1444,7 +1667,9 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"card: {card_line()}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
-    slam_frames = start_rendering(synth)
+    slam_frames = start_rendering("render-slam-frames", lambda: render_planar(synth))
+    hard = load_script("torch_record_ate_hard")
+    hard_frames = start_rendering("render-hard-frames", lambda: render_hard(synth, hard))
 
     with phase("build", seconds):
         lib = _build.build(verbose=True)
@@ -1753,6 +1978,17 @@ def main() -> int:
                                       sframes, gt, dev, kernels, positions)
         e2e += lines
         launches.update(more)
+
+    # -- the hard scene and the 6-dof sequences ---------------------------------
+    with phase("hard 6dof", seconds):
+        rendered, sixdof = hard_frames()
+        line, launches["hard 6dof"] = run_6dof(torch, port, _build, features, calib, evaluate,
+                                               sixdof, dev, kernels)
+        e2e.append(line)
+    with phase("hard", seconds):
+        line, launches["hard"] = run_hard(torch, port, _build, features, timing, calib, bench,
+                                          hard, rendered, dev, kernels, args.profile)
+        e2e.append(line)
 
     # -- the multi-process worker, the scaling harness and the dry run ---------
     with phase("multihost", seconds):

@@ -13,8 +13,11 @@ modelled on OpenCV's: reflect-101 borders for the blur, replicated borders
 for the resize, source coordinates quantised to 1/32 pixel and zero outside
 the image for the warp), so it runs where ``cv2`` is absent.  Its frames
 differ from cv2's by rounding only (mean |Δ| under one grey level).
-:func:`render_planar` and :func:`render_layered` return the frames and the
-ground truth in memory, for machines without an image writer.
+:func:`render_planar`, :func:`render_layered` and :func:`render_6dof` (the
+homography sequence of tests/test_vo_6dof.py) return the frames and the
+ground truth in memory, for machines without an image writer;
+``render_layered(..., workers=N)`` renders in N processes, byte-equal to the
+serial render.
 
 Geometry convention matches models/vo.py: poses are world←camera (T_wc),
 reference camera at the origin looking down +z at the plane z = Z0.
@@ -148,35 +151,52 @@ def _resize_cubic(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     return _to_u8(f)
 
 
-def _warp_perspective(img: np.ndarray, H: np.ndarray, size: Tuple[int, int],
-                      nearest: bool = False) -> np.ndarray:
-    """dst(x, y) = src(H⁻¹ (x, y)), zero outside the source image.  Bilinear
-    (source coordinates quantised to 1/32 pixel) or nearest."""
+def _warp_coords(H: np.ndarray, size: Tuple[int, int]) -> Tuple[np.ndarray, np.ndarray]:
+    """Source coordinates (X, Y) of every destination pixel: H⁻¹ (x, y)."""
     W, Hh = size
-    sh, sw = img.shape
     Minv = np.linalg.inv(H)
     yy, xx = np.mgrid[0:Hh, 0:W].astype(np.float64)
     den = Minv[2, 0] * xx + Minv[2, 1] * yy + Minv[2, 2]
     den = np.where(den != 0, 1.0 / np.where(den != 0, den, 1.0), 0.0)
     X = (Minv[0, 0] * xx + Minv[0, 1] * yy + Minv[0, 2]) * den
     Y = (Minv[1, 0] * xx + Minv[1, 1] * yy + Minv[1, 2]) * den
+    return X, Y
+
+
+def _tap(src: np.ndarray, yi: np.ndarray, xi: np.ndarray) -> np.ndarray:
+    sh, sw = src.shape
+    ok = (yi >= 0) & (yi < sh) & (xi >= 0) & (xi < sw)
+    return np.where(ok, src[np.clip(yi, 0, sh - 1), np.clip(xi, 0, sw - 1)], 0.0)
+
+
+def _sample_nearest(img: np.ndarray, X: np.ndarray, Y: np.ndarray) -> np.ndarray:
+    """img at the nearest pixel of each (X, Y), zero outside."""
+    return _tap(img.astype(np.float64), np.rint(Y).astype(np.int64),
+                np.rint(X).astype(np.int64)).astype(img.dtype)
+
+
+def _sample_bilinear(img: np.ndarray, X: np.ndarray, Y: np.ndarray) -> np.ndarray:
+    """img bilinearly at each (X, Y) quantised to 1/32 pixel, zero outside;
+    elementwise, so a subset of the coordinates gives that subset of the
+    values."""
     src = img.astype(np.float64)
-
-    def tap(yi, xi):
-        ok = (yi >= 0) & (yi < sh) & (xi >= 0) & (xi < sw)
-        return np.where(ok, src[np.clip(yi, 0, sh - 1), np.clip(xi, 0, sw - 1)], 0.0)
-
-    if nearest:
-        return tap(np.rint(Y).astype(np.int64), np.rint(X).astype(np.int64)).astype(img.dtype)
     Xq = np.rint(X * 32.0)
     Yq = np.rint(Y * 32.0)
     x0 = np.floor(Xq / 32.0).astype(np.int64)
     y0 = np.floor(Yq / 32.0).astype(np.int64)
     fx = Xq / 32.0 - x0
     fy = Yq / 32.0 - y0
-    out = ((1 - fy) * ((1 - fx) * tap(y0, x0) + fx * tap(y0, x0 + 1))
-           + fy * ((1 - fx) * tap(y0 + 1, x0) + fx * tap(y0 + 1, x0 + 1)))
+    out = ((1 - fy) * ((1 - fx) * _tap(src, y0, x0) + fx * _tap(src, y0, x0 + 1))
+           + fy * ((1 - fx) * _tap(src, y0 + 1, x0) + fx * _tap(src, y0 + 1, x0 + 1)))
     return _to_u8(out)
+
+
+def _warp_perspective(img: np.ndarray, H: np.ndarray, size: Tuple[int, int],
+                      nearest: bool = False) -> np.ndarray:
+    """dst(x, y) = src(H⁻¹ (x, y)), zero outside the source image.  Bilinear
+    (source coordinates quantised to 1/32 pixel) or nearest."""
+    X, Y = _warp_coords(H, size)
+    return (_sample_nearest if nearest else _sample_bilinear)(img, X, Y)
 
 
 # ---------------------------------------------------------------------------
@@ -225,24 +245,97 @@ def render_planar(
     return lefts, rights, _ground_truth(poses, fps)
 
 
-def render_layered(
-    n_frames: int = 200,
-    width: int = 752,
-    height: int = 480,
-    fx: float = 441.0,
+def render_6dof(
+    n_frames: int = 6,
+    width: int = 400,
+    height: int = 300,
+    fx: float = 350.0,
     baseline: float = 0.1,
-    fps: float = 10.0,
+    Z0: float = 2.5,
     seed: int = 0,
-    radius: float = 0.35,
-    depths: Tuple[float, ...] = (7.0, 4.5, 3.0, 2.2),
-    photometric: bool = True,
-    degraded_frames: Tuple[int, ...] = (),
-    dynamic_occluders: int = 0,
-    occluder_speed: float = 1.0,
-    exposure_banding: float = 0.0,
-) -> Tuple[List[np.ndarray], List[np.ndarray], Trajectory]:
-    """The frames of :func:`make_layered_euroc`, in memory: (lefts, rights,
-    ground truth).  See :func:`make_layered_euroc` for the scene."""
+    blur=None,
+    warp=None,
+) -> Tuple[List[np.ndarray], List[np.ndarray], list]:
+    """The 6-dof homography sequence of tests/test_vo_6dof.py, in memory: a
+    textured fronto-parallel plane at ``Z0`` seen under translation plus
+    yaw/pitch wobble (frame i: xi = (0.02 i, 0.004 i, 0.006 i, 0, 0.004 i,
+    0.002 i)), each view an exact homography warp of one texture and the
+    right view the left one shifted by fx·B/Z0.  Returns (lefts, rights,
+    [(R_wc, t_wc)]).  ``blur(tex)`` and ``warp(img, H, (width, height))``
+    default to this module's numpy versions of OpenCV's 3×3 σ 0.6 Gaussian
+    and bilinear ``warpPerspective``; pass cv2's to render as that test
+    does."""
+    blur = blur or (lambda t: _gaussian_blur(t, 3, 0.6))
+    warp = warp or _warp_perspective
+    K = np.array([[fx, 0, width / 2], [0, fx, height / 2], [0, 0, 1.0]])
+    rng = np.random.default_rng(seed)
+    tex = blur(rng.integers(0, 255, (height, width), np.uint8))
+    Hlr = _plane_homography(K, np.eye(3), np.array([-baseline, 0.0, 0.0]), Z0)
+    lefts, rights, poses = [], [], []
+    for i in range(n_frames):
+        R_wc, t_wc = _se3_exp_np(np.array([0.02 * i, 0.004 * i, 0.006 * i,
+                                           0.0, 0.004 * i, 0.002 * i]))
+        Hl = _plane_homography(K, R_wc.T, -(R_wc.T @ t_wc), Z0)
+        lefts.append(warp(tex, Hl, (width, height)))
+        rights.append(warp(tex, Hlr @ Hl, (width, height)))
+        poses.append((R_wc, t_wc))
+    return lefts, rights, poses
+
+
+def _layered_view(scene: dict, R_cw: np.ndarray, t_cw: np.ndarray, right: bool, i: int,
+                  rng: np.random.Generator) -> np.ndarray:
+    """One view of frame ``i`` of the layered scene: the planes composited
+    far→near, the occluders, then the photometric nuisance (its sensor noise
+    is ``rng``'s next (H, W) normal draw) and the degradation."""
+    width, height, fx, baseline = (scene[k] for k in ("width", "height", "fx", "baseline"))
+    img = np.zeros((height, width), np.uint8)
+    # rectified right camera: same orientation, centre offset b·e_x
+    # along the left camera's x-axis ⇒ world→right is (R_cw, t_cw − b·e_x)
+    t_cam = t_cw - (np.array([baseline, 0.0, 0.0]) if right else 0.0)
+    for Zk, tex, mask in sorted(scene["planes"], key=lambda p: -p[0]):
+        Hc = _plane_homography(scene["K"], R_cw, t_cam, Zk) @ scene["T_canvas"]
+        X, Y = _warp_coords(Hc, (width, height))
+        # the texture only where the plane's mask keeps it (the samples
+        # are elementwise, so this is the full warp at those pixels)
+        keep = _sample_nearest(mask, X, Y) > 127
+        img[keep] = _sample_bilinear(tex, X[keep], Y[keep])
+    for oc in scene["occluders"]:
+        px = oc["cx"] + oc["ax"] * np.sin(oc["wx"] * i + oc["ph"])
+        py = oc["cy"] + oc["ay"] * np.sin(oc["wy"] * i + 2 * oc["ph"])
+        if right:
+            px -= fx * baseline / oc["z"]
+        oh, ow = oc["tex"].shape
+        x0, y0 = int(px - ow / 2), int(py - oh / 2)
+        sx0, sy0 = max(0, -x0), max(0, -y0)
+        dx0, dy0 = max(0, x0), max(0, y0)
+        dx1 = min(width, x0 + ow)
+        dy1 = min(height, y0 + oh)
+        if dx1 > dx0 and dy1 > dy0:
+            img[dy0:dy1, dx0:dx1] = oc["tex"][
+                sy0 : sy0 + dy1 - dy0, sx0 : sx0 + dx1 - dx0]
+    if scene["photometric"]:
+        gain = 1.0 + 0.06 * np.sin(0.37 * i + (1.1 if right else 0.0))
+        bias = 3.0 * np.sin(0.23 * i + (0.7 if right else 0.0))
+        f = img.astype(np.float64) * scene["vignette"] * gain + bias
+        if scene["exposure_banding"] > 0.0:
+            rows_n = np.arange(height, dtype=np.float64)[:, None]
+            band = 1.0 + scene["exposure_banding"] * np.sin(
+                2 * np.pi * rows_n / height + 0.9 * i
+                + (0.5 if right else 0.0))
+            f *= band
+        f += rng.normal(0.0, 2.0, f.shape)
+        img = np.clip(f, 0, 255).astype(np.uint8)
+    if i in scene["degraded_frames"]:
+        img = _gaussian_blur(img, 51, 12.0)
+        img = (img * 0.25).astype(np.uint8)
+    return img
+
+
+def _layered_scene(width, height, fx, baseline, seed, depths, photometric, degraded_frames,
+                   dynamic_occluders, occluder_speed, exposure_banding):
+    """The layered scene of :func:`render_layered` (textured planes,
+    occluders, vignetting) and the generator after drawing it, positioned
+    at the first frame's sensor noise."""
     K = np.array([[fx, 0, width / 2], [0, fx, height / 2], [0, 0, 1.0]])
     rng = np.random.default_rng(seed)
 
@@ -279,8 +372,6 @@ def render_layered(
         tex, mask = make_canvas(fill_rect=rect)
         planes.append((Zk, tex, mask))
 
-    poses = loop_trajectory(n_frames, radius=radius)
-
     # independently-moving occluders: small textured patches at a NEAR depth
     # following their own sinusoidal image-space paths (stereo-consistent:
     # the right view sees each patch shifted by its disparity fx·B/Z_occ)
@@ -306,53 +397,94 @@ def render_layered(
         (width / 2) ** 2 + (height / 2) ** 2)
     vignette = 1.0 - 0.28 * r2
 
-    def render(R_cw, t_cw, right: bool, i: int) -> np.ndarray:
-        img = np.zeros((height, width), np.uint8)
-        # rectified right camera: same orientation, centre offset b·e_x
-        # along the left camera's x-axis ⇒ world→right is (R_cw, t_cw − b·e_x)
-        t_cam = t_cw - (np.array([baseline, 0.0, 0.0]) if right else 0.0)
-        for Zk, tex, mask in sorted(planes, key=lambda p: -p[0]):
-            Hc = _plane_homography(K, R_cw, t_cam, Zk) @ T_canvas
-            warped = _warp_perspective(tex, Hc, (width, height))
-            wmask = _warp_perspective(mask, Hc, (width, height), nearest=True)
-            img = np.where(wmask > 127, warped, img)
-        for oc in occluders:
-            px = oc["cx"] + oc["ax"] * np.sin(oc["wx"] * i + oc["ph"])
-            py = oc["cy"] + oc["ay"] * np.sin(oc["wy"] * i + 2 * oc["ph"])
-            if right:
-                px -= fx * baseline / oc["z"]
-            oh, ow = oc["tex"].shape
-            x0, y0 = int(px - ow / 2), int(py - oh / 2)
-            sx0, sy0 = max(0, -x0), max(0, -y0)
-            dx0, dy0 = max(0, x0), max(0, y0)
-            dx1 = min(width, x0 + ow)
-            dy1 = min(height, y0 + oh)
-            if dx1 > dx0 and dy1 > dy0:
-                img[dy0:dy1, dx0:dx1] = oc["tex"][
-                    sy0 : sy0 + dy1 - dy0, sx0 : sx0 + dx1 - dx0]
-        if photometric:
-            gain = 1.0 + 0.06 * np.sin(0.37 * i + (1.1 if right else 0.0))
-            bias = 3.0 * np.sin(0.23 * i + (0.7 if right else 0.0))
-            f = img.astype(np.float64) * vignette * gain + bias
-            if exposure_banding > 0.0:
-                rows_n = np.arange(height, dtype=np.float64)[:, None]
-                band = 1.0 + exposure_banding * np.sin(
-                    2 * np.pi * rows_n / height + 0.9 * i
-                    + (0.5 if right else 0.0))
-                f *= band
-            f += rng.normal(0.0, 2.0, f.shape)
-            img = np.clip(f, 0, 255).astype(np.uint8)
-        if i in degraded_frames:
-            img = _gaussian_blur(img, 51, 12.0)
-            img = (img * 0.25).astype(np.uint8)
-        return img
+    scene = dict(width=width, height=height, fx=fx, baseline=baseline, K=K,
+                 T_canvas=T_canvas, planes=planes, occluders=occluders,
+                 vignette=vignette, photometric=photometric,
+                 degraded_frames=tuple(degraded_frames),
+                 exposure_banding=exposure_banding)
+    return scene, rng
 
-    lefts, rights = [], []
-    for i, (R_wc, t_wc) in enumerate(poses):
-        R_cw, t_cw = R_wc.T, -(R_wc.T @ t_wc)
-        lefts.append(render(R_cw, t_cw, right=False, i=i))
-        rights.append(render(R_cw, t_cw, right=True, i=i))
-    return lefts, rights, _ground_truth(poses, fps)
+
+# the scene of a worker process of the parallel render, built once by the
+# pool's initializer from the render's arguments (the canvases are not sent)
+_WORKER_SCENE: dict = {}
+
+
+def _init_render_worker(scene_args: tuple) -> None:
+    _WORKER_SCENE.update(_layered_scene(*scene_args)[0])
+
+
+def _render_pair_task(task) -> Tuple[np.ndarray, np.ndarray]:
+    """Frame ``i``'s (left, right) in a worker: each view's noise is drawn
+    from the generator state the serial render would hold before it."""
+    i, R_cw, t_cw, states = task
+    views = []
+    for right, state in zip((False, True), states):
+        rng = np.random.default_rng()
+        if state is not None:
+            rng.bit_generator.state = state
+        views.append(_layered_view(_WORKER_SCENE, R_cw, t_cw, right, i, rng))
+    return views[0], views[1]
+
+
+def render_layered(
+    n_frames: int = 200,
+    width: int = 752,
+    height: int = 480,
+    fx: float = 441.0,
+    baseline: float = 0.1,
+    fps: float = 10.0,
+    seed: int = 0,
+    radius: float = 0.35,
+    depths: Tuple[float, ...] = (7.0, 4.5, 3.0, 2.2),
+    photometric: bool = True,
+    degraded_frames: Tuple[int, ...] = (),
+    dynamic_occluders: int = 0,
+    occluder_speed: float = 1.0,
+    exposure_banding: float = 0.0,
+    workers: int = 1,
+) -> Tuple[List[np.ndarray], List[np.ndarray], Trajectory]:
+    """The frames of :func:`make_layered_euroc`, in memory: (lefts, rights,
+    ground truth).  See :func:`make_layered_euroc` for the scene.
+
+    ``workers`` > 1 renders the frames in a pool of that many spawned
+    processes, each building the scene from the same arguments.  The frames
+    are byte-equal to the serial render's: the only per-frame random draw is
+    each view's sensor noise (left, then right), so this process first walks
+    the generator through those draws in the serial order and hands each
+    view the state it would start from."""
+    scene_args = (width, height, fx, baseline, seed, tuple(depths), photometric,
+                  tuple(degraded_frames), dynamic_occluders, occluder_speed,
+                  exposure_banding)
+    poses = loop_trajectory(n_frames, radius=radius)
+    cam_poses = [(R_wc.T, -(R_wc.T @ t_wc)) for R_wc, t_wc in poses]
+    if workers <= 1:
+        scene, rng = _layered_scene(*scene_args)
+        lefts, rights = [], []
+        for i, (R_cw, t_cw) in enumerate(cam_poses):
+            lefts.append(_layered_view(scene, R_cw, t_cw, False, i, rng))
+            rights.append(_layered_view(scene, R_cw, t_cw, True, i, rng))
+        return lefts, rights, _ground_truth(poses, fps)
+
+    import multiprocessing
+
+    with multiprocessing.get_context("spawn").Pool(
+            min(workers, n_frames), _init_render_worker, (scene_args,)) as pool:
+        # the workers build the scene while this process draws the noise
+        _, rng = _layered_scene(*scene_args)
+        tasks = []
+        for i, (R_cw, t_cw) in enumerate(cam_poses):
+            states = []
+            for _ in range(2):
+                states.append(rng.bit_generator.state if photometric else None)
+                if photometric:
+                    rng.normal(0.0, 2.0, (height, width))
+            tasks.append((i, R_cw, t_cw, states))
+        # a worker that cannot start leaves the pool waiting: the timeout
+        # bounds that wait, and leaving the block terminates the workers
+        pairs = pool.map_async(_render_pair_task, tasks, chunksize=1).get(
+            timeout=60 + 10 * n_frames)
+    return [p[0] for p in pairs], [p[1] for p in pairs], _ground_truth(poses, fps)
 
 
 def _calib_yaml(path: str, name: str, W: int, H: int, fx: float,
@@ -458,6 +590,7 @@ def make_layered_euroc(
     dynamic_occluders: int = 0,
     occluder_speed: float = 1.0,
     exposure_banding: float = 0.0,
+    workers: int = 1,
 ) -> Tuple[str, str]:
     """Render a MULTI-DEPTH EuRoC-layout loop sequence with ground truth.
 
@@ -467,11 +600,11 @@ def make_layered_euroc(
     ``degraded_frames`` (blurred and darkened, the relocalization hook),
     ``dynamic_occluders`` (independently-moving foreground patches) and
     ``exposure_banding`` (a per-frame row-wise exposure ramp).  Per-plane
-    geometry is an exact homography, so ground truth is exact.  Returns the
-    calib YAML paths.
+    geometry is an exact homography, so ground truth is exact.  ``workers``:
+    see :func:`render_layered`.  Returns the calib YAML paths.
     """
     lefts, rights, gt = render_layered(
         n_frames, width, height, fx, baseline, fps, seed, radius, depths,
         photometric, degraded_frames, dynamic_occluders, occluder_speed,
-        exposure_banding)
+        exposure_banding, workers)
     return _write_euroc(root, lefts, rights, gt, width, height, fx, baseline, fps)

@@ -425,6 +425,21 @@ def test_layered_renderer_against_cv2(tmp_path):
         assert np.abs(r.astype(np.int32) - fr.right).mean() <= 1.0
 
 
+def test_layered_render_in_a_pool_equals_serial():
+    """render_layered with 2 worker processes: every frame byte-equal to the
+    serial render, the same ground truth."""
+    kw = dict(n_frames=5, width=96, height=64, fx=60.0, degraded_frames=(2,),
+              dynamic_occluders=1, occluder_speed=0.5, exposure_banding=0.1)
+    serial, pooled = tsynth.render_layered(**kw), tsynth.render_layered(workers=2, **kw)
+    for i in range(kw["n_frames"]):
+        for side in (0, 1):
+            a, b = serial[side][i], pooled[side][i]
+            assert a.dtype == b.dtype == np.uint8
+            np.testing.assert_array_equal(b, a, err_msg=f"frame {i} side {side}")
+    for f in ("stamps", "t", "R"):
+        np.testing.assert_array_equal(getattr(pooled[2], f), getattr(serial[2], f))
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
