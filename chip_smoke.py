@@ -60,7 +60,26 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      with the CPU slab run of the same mesh, frame 0 with speckle off
      against the single-device K2 pipeline on the card (every output
      exact), device launches and busy share per frame by ``torch.profiler``
-     over 3;
+     over 3.
+     On one card every frame step is a replay of its variant's CUDA graph
+     (utils/graphs.py; the mesh paths stay eager): a frame's first run is
+     eager and captures, and every kernel count goes up at the replays
+     (never at the capture), so each frame's launch gate holds as it did.
+     The ``graphs`` phase (after SGM ``lr_check``) sets each captured
+     variant beside its eager step in this call: first K3's cooperative
+     launch and ``torch.linalg.solve_ex`` captured alone, equal to their
+     eager calls; then BM at ``Outputs.all()``, BM ``lr_check``, 4-path
+     SGM at 128 disparities, 8-path SGM, Bayer and the bilateral filter
+     (iters 1), 9 distinct frames each, all held to the end and each equal
+     to the eager step bit for bit; ``process_batch`` of 8 frames (the
+     first call and a replay); the VO step over the planar sequence (each
+     dispatch against ``_vo_first``/``_vo_core`` run eagerly); the bench's
+     SLAM-compute chain and compute batch.  For each: ``timed`` median and
+     p75, pipelined ms a frame, and from ``torch.profiler`` the host calls
+     (runtime launches, graph launches, copies, memsets), device events
+     and busy share per frame, captured and eager; gates: at most 16 host
+     calls a BM or SGM frame and 32 a SLAM-compute frame, one graph
+     launch a step;
   5. runs the SLAM engine, ``StereoSlam`` on the card with the default
      ``PipelineConfig`` (BM) and ``SlamConfig``, over the port's planar
      synthetic sequence (utils/synth.py, rendered with numpy while the
@@ -226,6 +245,15 @@ SIXDOF_VO_FRAMES = 6
 SIXDOF_SLAM_FRAMES = 8
 SIXDOF_BARS = (0.02, 0.02, 0.03)   # m, rad, m: VO ATE, VO final rotation, SLAM ATE
 BENCH_WINDOW_ITERS = 10   # the compute section's BENCH_ITERS
+GRAPH_FRAMES = 9    # each path of the graphs phase: frame 0 runs eagerly and captures
+GRAPH_BATCH = 8     # process_batch's B in the graphs phase
+GRAPH_PROFILED = 4  # frames (or batches) in each profiler window of the graphs phase
+GRAPH_HOST_CALLS_MAX = 16       # per BM or SGM frame, captured
+GRAPH_SLAM_HOST_CALLS_MAX = 32  # per frame of the SLAM-compute chain (pipeline + VO), captured
+# the CUDA runtime and driver calls the profiler records that enqueue work:
+# kernel, cooperative and graph launches, copies and memsets
+HOST_CALL_PREFIXES = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch",
+                      "cudaMemcpy", "cuMemcpy", "cudaMemset", "cuMemset")
 H, W = 480, 752
 
 SOURCES = {   # key: (C entry point, CUDA source, TPU kernel it replaces)
@@ -431,11 +459,16 @@ def summary(label, per_frame_ms, pipelined_ms=None):
 
 def pipelined(torch, pipe, frames, outputs):
     """Host ms per frame with frames enqueued back to back."""
+    return pipelined_ms(torch, lambda left, right: pipe.process(left, right, outputs), frames)
+
+
+def pipelined_ms(torch, enqueue, frames):
+    """Host ms per frame with ``enqueue(left, right)`` called back to back
+    over ``frames`` and closed by one synchronize."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for left, right in frames:
-        last = pipe.process(left, right, outputs)
-    last.block_until_ready()
+        enqueue(left, right)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / len(frames)
 
@@ -833,10 +866,11 @@ def run_slam(torch, port, _build, features, timing, evaluate, calib, frames, gt,
     return line, launches, positions
 
 
-def profile_steps(torch, step, n):
-    """Device launches, busy ms and wall ms per step: ``torch.profiler`` over
-    ``n`` synchronous calls of ``step(i)`` (up to PROFILER_WINDOWS windows
-    while the profiler records no device time)."""
+def profile_window(torch, step, n, read):
+    """``torch.profiler`` over ``n`` calls of ``step(i)`` closed by one
+    synchronize; returns ``read(profile, wall ms)``.  The profiler now and
+    then drops a window's events: a window that ``read`` finds short (it
+    returns None) is tried again, up to PROFILER_WINDOWS windows."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(PROFILER_WINDOWS):
@@ -847,12 +881,24 @@ def profile_steps(torch, step, n):
                 step(i)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        out = read(prof, wall_ms)
+        if out is not None:
+            return out
+    raise AssertionError(f"the profiler recorded no device time in {PROFILER_WINDOWS} windows")
+
+
+def profile_steps(torch, step, n):
+    """Device launches, busy ms and wall ms per step: ``torch.profiler`` over
+    ``n`` synchronous calls of ``step(i)``."""
+    def read(prof, wall_ms):
         rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
                 if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
-        if rows:
-            busy = sum(r[2] for r in rows)
-            return sum(r[1] for r in rows) / n, busy / n, wall_ms / n, rows
-    raise AssertionError(f"the profiler recorded no device time in {PROFILER_WINDOWS} windows")
+        if not rows:
+            return None
+        busy = sum(r[2] for r in rows)
+        return sum(r[1] for r in rows) / n, busy / n, wall_ms / n, rows
+
+    return profile_window(torch, step, n, read)
 
 
 def check_bayer(torch, color, port, frames, dev):
@@ -1531,6 +1577,336 @@ def run_cli(io, calib_yamls, frames, served0, work):
              "kernel_launches": launches}, launches)
 
 
+def same_bits(got, want, label):
+    """Two results (dicts of numpy arrays) equal in keys, dtype, shape and
+    every bit."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: keys {sorted(got)} vs {sorted(want)}")
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{label} {k}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
+        gb, wb = (np.ascontiguousarray(a).reshape(-1).view(np.uint8) for a in (g, w))
+        if not np.array_equal(gb, wb):
+            raise AssertionError(f"{label} {k}: captured and eager differ")
+
+
+def host_tree(torch, tree):
+    """A pytree's tensors as {leaf index: numpy array}."""
+    leaves, _ = torch.utils._pytree.tree_flatten(tree)
+    return {str(i): x.cpu().numpy() for i, x in enumerate(leaves)}
+
+
+def dispatch_profile(torch, step, n, per=1):
+    """``n`` calls of ``step(i)`` (``per`` frames each) enqueued back to back
+    and closed by one synchronize, in a ``torch.profiler`` window: per frame,
+    the host calls that enqueue work (the profiler's CUDA runtime and driver
+    events named by HOST_CALL_PREFIXES, by name), the device events
+    (kernels, memsets, copies: the events on the card) and the device busy
+    ms; and the busy share of the window's wall time.  Read from the
+    profiler's raw events: building its per-event Python records takes
+    tens of seconds for an eager 8-path SGM frame."""
+    def read(prof, wall):
+        host, events, busy_ns = {}, 0, 0
+        for e in prof.profiler.kineto_results.events():
+            if str(e.device_type()).endswith("CUDA"):
+                if e.duration_ns() > 0:
+                    events += 1
+                    busy_ns += e.duration_ns()
+            elif e.name().startswith(HOST_CALL_PREFIXES):
+                host[e.name()] = host.get(e.name(), 0) + 1
+        if not events or not host:
+            return None
+        f, busy = n * per, busy_ns / 1e6
+        return {"host_calls_per_frame": sum(host.values()) / f,
+                "graph_launches_per_frame": sum(v for k, v in host.items()
+                                                if "GraphLaunch" in k) / f,
+                "host_calls_by_name": {k: v / f for k, v in sorted(host.items())},
+                "device_events_per_frame": events / f,
+                "device_busy_ms_per_frame": busy / f,
+                "device_busy_share": busy / wall,
+                "profiled_wall_ms_per_frame": wall / f}
+
+    return profile_window(torch, step, n, read)
+
+
+def side_by_side(torch, timing, frames, graph_frame, eager_frame, graph_enqueue,
+                 eager_enqueue, dev, per=1, timed_ms=None, profiled=GRAPH_PROFILED):
+    """Captured against eager in one call on the same frames: ``timed`` ms
+    of a synchronous frame (CUDA events; median and p75; ``timed_ms``: the
+    lists already measured, by "captured" and "eager"), pipelined ms a
+    frame, and the profiler's host calls, device events and busy share over
+    ``profiled`` frames.  ``per``: frames per call."""
+    out = {}
+    for name, frame, enqueue in (("captured", graph_frame, graph_enqueue),
+                                 ("eager", eager_frame, eager_enqueue)):
+        ms = timed_ms[name] if timed_ms else [
+            timing.timed(lambda: frame(left, right), dev)[1] / per for left, right in frames]
+        out[name] = {
+            "timed_median_ms": statistics.median(ms),
+            "timed_p75_ms": float(np.percentile(ms, 75)),
+            "pipelined_ms": pipelined_ms(torch, enqueue, frames) / per,
+            **dispatch_profile(torch, lambda i: enqueue(*frames[i % len(frames)]),
+                               min(profiled, len(frames)), per),
+        }
+    return out
+
+
+def report(label, res, host_max, graph_launches):
+    """Log a graphs-phase path, gate its captured host calls and graph
+    launches per frame, and return its JSON line."""
+    c, e = res["captured"], res["eager"]
+    log(f"graphs {label} ({res['seconds']:.1f} s): captured timed median {c['timed_median_ms']:.3f} ms (p75 "
+        f"{c['timed_p75_ms']:.3f}), pipelined {c['pipelined_ms']:.3f} ms/frame, "
+        f"{c['host_calls_per_frame']:.2f} host calls/frame, {c['device_events_per_frame']:.1f} "
+        f"device events/frame, busy {c['device_busy_ms_per_frame']:.3f} ms "
+        f"({100 * c['device_busy_share']:.1f} %); eager {e['timed_median_ms']:.3f} ms (p75 "
+        f"{e['timed_p75_ms']:.3f}), pipelined {e['pipelined_ms']:.3f}, "
+        f"{e['host_calls_per_frame']:.1f} host calls/frame, {e['device_events_per_frame']:.1f} "
+        f"device events/frame, busy {e['device_busy_ms_per_frame']:.3f} ms "
+        f"({100 * e['device_busy_share']:.1f} %)")
+    log(f"  captured host calls by name: {c['host_calls_by_name']}")
+    if c["host_calls_per_frame"] > host_max:
+        raise AssertionError(f"graphs {label}: {c['host_calls_per_frame']} host calls a "
+                             f"frame, more than {host_max}")
+    if abs(c["graph_launches_per_frame"] - graph_launches) > 1e-9:
+        raise AssertionError(f"graphs {label}: {c['graph_launches_per_frame']} graph launches "
+                             f"a frame, not {graph_launches}")
+    return {"path": f"graphs {label}", **res}
+
+
+def graph_pipeline(torch, timing, pipe, frames, outputs, label, encoding="mono8",
+                   profiled=GRAPH_PROFILED):
+    """One single-device frame path of the graphs phase: every frame
+    enqueued (its graph; frame 0 runs eagerly and captures) with its
+    FrameResult held (more than ``max_in_flight`` + 2), then each frame's
+    eager step timed and each held result fetched and held to it, bit for
+    bit; one graph; then ``timed_process`` over the frames after frame 0 and
+    ``side_by_side`` (with those and the eager times)."""
+    t0 = time.perf_counter()
+    if len(frames) <= pipe.config.max_in_flight + 2:
+        raise ValueError("hold more frames than max_in_flight + 2")
+    held, first_ms = [], None
+    for left, right in frames:
+        res, first_ms = (pipe.process(left, right, outputs, encoding), first_ms) \
+            if held else pipe.timed_process(left, right, outputs, encoding)
+        held.append(res)
+    ms = {"eager": []}
+    for i, (res, (left, right)) in enumerate(zip(held, frames)):
+        want, t = timing.timed(lambda: pipe._eager(left, right, outputs, encoding),
+                               pipe.device)
+        ms["eager"].append(t)
+        same_bits(res.fetch(), {k: v.cpu().numpy() for k, v in want.items()},
+                  f"graphs {label} frame {i}")
+    if pipe._get_variant(outputs, encoding).graph_count() != 1:
+        raise AssertionError(f"graphs {label}: more than one graph")
+    log(f"graphs {label}: {len(frames)} frames held to the end, each equal to the eager "
+        f"step bit for bit; the first (eager run and capture) {first_ms:.1f} ms")
+    ms = {"captured": [pipe.timed_process(left, right, outputs, encoding)[1]
+                       for left, right in frames[1:]], "eager": ms["eager"][1:]}
+    res = side_by_side(
+        torch, timing, frames[1:],
+        lambda l, r: pipe.process(l, r, outputs, encoding).block_until_ready(),
+        lambda l, r: pipe._eager(l, r, outputs, encoding),
+        lambda l, r: pipe.process(l, r, outputs, encoding),
+        lambda l, r: pipe._eager(l, r, outputs, encoding), pipe.device,
+        timed_ms=ms, profiled=profiled)
+    return report(label, {"frames": len(frames), "bit_exact": True,
+                          "first_frame_ms": first_ms,
+                          "seconds": time.perf_counter() - t0, **res},
+                  GRAPH_HOST_CALLS_MAX, 1)
+
+
+def graph_batch(torch, timing, pipe, frames, outputs):
+    """``process_batch`` of B distinct frames: the first call (eager, then
+    the capture) and a replay, both held and each frame equal to its eager
+    step bit for bit; one graph launch per batch."""
+    t0 = time.perf_counter()
+    B = len(frames)
+    ls, rs = (np.stack([f[k] for f in frames]) for k in (0, 1))
+    first = pipe.process_batch(ls, rs, outputs)
+    again = pipe.process_batch(ls, rs, outputs)
+    for i, (left, right) in enumerate(frames):
+        want = {k: v.cpu().numpy() for k, v in pipe._eager(left, right, outputs,
+                                                              "mono8").items()}
+        for name, out in (("first", first), ("replay", again)):
+            same_bits({k: v[i].cpu().numpy() for k, v in out.items()}, want,
+                      f"graphs batch {name} frame {i}")
+    log(f"graphs batch: B {B}, the first call and a replay held, each frame equal to the "
+        "eager step bit for bit")
+    batch = [(ls, rs)] * 3
+
+    def eager(l, r):
+        return [pipe._eager(l[i], r[i], outputs, "mono8") for i in range(B)]
+
+    res = side_by_side(torch, timing, batch,
+                       lambda l, r: pipe.process_batch(l, r, outputs)["disparity"].sum(),
+                       eager, lambda l, r: pipe.process_batch(l, r, outputs), eager,
+                       pipe.device, per=B)
+    return report(f"batch B{B}", {"frames": B, "bit_exact": True,
+                                  "seconds": time.perf_counter() - t0, **res},
+                  GRAPH_HOST_CALLS_MAX, 1 / B)
+
+
+def eager_vo(vo_mod, prev, rect, disp, cam):
+    """The VO dispatch's device work run op by op: (TrackedFrame, bundle)."""
+    if prev is None:
+        kp, pts, pv = vo_mod._vo_first(rect, disp, **cam)
+        return vo_mod.TrackedFrame(kp, pts, pv), vo_mod._pack_host_bundle(kp, pts, pv)
+    kp, pts, pv, n, R, t, rms = vo_mod._vo_core(prev.kp, prev.pts_cam, prev.pts_valid,
+                                                rect, disp, **cam)
+    return (vo_mod.TrackedFrame(kp, pts, pv),
+            vo_mod._pack_host_bundle(kp, pts, pv, n, R, t, rms))
+
+
+def graph_vo(torch, port, timing, vo_mod, model, frames, dev):
+    """The SLAM-compute chain, frame step and VO, over the planar sequence:
+    each VO dispatch (a graph) held to ``_vo_first`` / ``_vo_core`` run
+    eagerly on its inputs and previous frame, bit for bit, every frame's
+    outputs held to the end; then ``side_by_side`` (a frame: the pipeline's
+    graph, the VO's graph, the pinned bundle copy and its wait)."""
+    t0 = time.perf_counter()
+    pipe = port.StereoPipeline(model, port.PipelineConfig(), device=dev)
+    outs = port.Outputs.of("disparity", "rect_mono_left")
+    vo = vo_mod.StereoVisualOdometry(model, device=dev)
+    cam = dict(k=vo.num_features, threshold=vo.fast_threshold, fx=model.fx,
+               cx=model.left.calib.cx, cy=model.left.calib.cy, baseline=model.baseline,
+               disparity_offset=model.disparity_offset)
+    held = []
+    for left, right in frames:
+        o = pipe.process(left, right, outs).outputs
+        prev = vo.state.prev
+        pending = vo.dispatch(o["rect_mono_left"], o["disparity"])
+        held.append((pending, host_tree(torch, eager_vo(vo_mod, prev, o["rect_mono_left"],
+                                                        o["disparity"], cam))))
+    tracked = [vo.complete(p)["tracked"] for p, _ in held]
+    for i, ((cur, (buf, _), _), want) in enumerate(held):
+        same_bits(host_tree(torch, (cur, buf)), want, f"graphs VO frame {i}")
+    if not all(tracked[1:]):
+        raise AssertionError(f"graphs VO: tracked {tracked}")
+    log(f"graphs VO: {len(frames)} frames held to the end, each dispatch equal to the eager "
+        "VO step bit for bit (solve_ex inside the graph); all tracked")
+    prev = {"frame": vo.state.prev}
+
+    def eager_enqueue(left, right):
+        o = pipe._eager(left, right, outs, "mono8")
+        prev["frame"], bundle = eager_vo(vo_mod, prev["frame"], o["rect_mono_left"],
+                                         o["disparity"], cam)
+        return vo._prefetch(bundle)
+
+    def graph_enqueue(left, right):
+        o = pipe.process(left, right, outs).outputs
+        return vo.dispatch(o["rect_mono_left"], o["disparity"])[1]
+
+    def wait(fetch):
+        if fetch[1] is not None:     # the bundle copy's event (none on the CPU)
+            fetch[1].synchronize()
+
+    res = side_by_side(torch, timing, frames[1:],
+                       lambda l, r: wait(graph_enqueue(l, r)),
+                       lambda l, r: wait(eager_enqueue(l, r)),
+                       graph_enqueue, eager_enqueue, dev)
+    return report("VO (pipeline + VO step)",
+                  {"frames": len(frames), "bit_exact": True,
+                   "seconds": time.perf_counter() - t0, **res},
+                  GRAPH_SLAM_HOST_CALLS_MAX, 2)
+
+
+def graph_bench_chains(torch, port, timing, bench, dev):
+    """The bench's SLAM-compute chain and compute batch (B frames, each one
+    graph) against their eager functions (``Captured.fn``) on the bench's
+    inputs: outputs bit for bit (the first call and a replay), then
+    ``side_by_side``."""
+    model, left, right = bench._model_and_frame()
+    cfg = bench._bench_config()
+    B = GRAPH_BATCH
+    lefts = bench._on(dev, [left + np.uint8(i) for i in range(B)])
+    rights = bench._on(dev, [right + np.uint8(i) for i in range(B)])
+    lines = []
+    for label, unit in (
+            ("bench SLAM-compute chain", bench._slam_chain(model, cfg, dev)),
+            ("bench compute batch", bench._frame_runner(
+                model, cfg, port.Outputs.of("disparity", "pointcloud"), dev))):
+        t0 = time.perf_counter()
+        want = host_tree(torch, unit.fn(lefts, rights))
+        for call in ("first", "replay"):
+            same_bits(host_tree(torch, unit(lefts, rights)), want, f"graphs {label} {call}")
+        res = side_by_side(torch, timing, [(lefts, rights)] * 3,
+                           lambda l, r: unit(l, r), lambda l, r: unit.fn(l, r),
+                           lambda l, r: unit(l, r), lambda l, r: unit.fn(l, r), dev, per=B,
+                           profiled=1)
+        lines.append(report(label, {"frames": B, "bit_exact": True,
+                                    "seconds": time.perf_counter() - t0, **res},
+                            GRAPH_SLAM_HOST_CALLS_MAX, 1 / B))
+    return lines
+
+
+def run_graphs(torch, port, timing, bench, graphs, speckle_kernel, vo_mod, calib, arrays,
+               frames, sframes, slam_frames, dev):
+    """The compiled dispatch (utils/graphs.py) on the card, each captured
+    variant beside its eager step in this call.  First the cooperative
+    speckle launch (K3's memset and ``cudaLaunchCooperativeKernel``) and
+    ``torch.linalg.solve_ex`` (the PnP's 6×6 solve) captured alone and
+    replayed, equal to their eager calls; then, over GRAPH_FRAMES distinct
+    frames each: BM at ``Outputs.all()``, BM with ``lr_check``, 4-path SGM
+    at 128 disparities, 8-path SGM, Bayer, the bilateral filter at iters 1;
+    ``process_batch`` of GRAPH_BATCH frames; the VO step over the planar
+    sequence; the bench's SLAM-compute chain and compute batch.  Each path:
+    outputs equal to the eager step bit for bit, every result held to the
+    end, ``timed`` median and p75 and pipelined ms a frame, host calls,
+    device events and busy share per frame (gated: at most
+    GRAPH_HOST_CALLS_MAX host calls a BM or SGM frame, GRAPH_SLAM_HOST_CALLS_MAX
+    a SLAM-compute frame, one graph launch a step).  Returns the JSON
+    lines."""
+    d, v = (port.StereoPipeline.from_arrays(*arrays, device=dev)._eager(
+        *frames[0], port.Outputs.of("disparity"), "mono8")[k]
+        for k in ("disparity", "disparity_valid"))
+    sp = port.SpeckleConfig()
+    k3 = graphs.Captured(lambda d, v: speckle_kernel.labels(d, v, sp.max_diff,
+                                                            sp.propagation_iters),
+                         dev, name="K3 alone")
+    want = speckle_kernel.labels(d, v, sp.max_diff, sp.propagation_iters)
+    for call in ("first", "replay"):
+        require_equal(f"graphs: K3 captured, {call}", k3(d, v), want)
+    rng = np.random.default_rng(0)
+    m = torch.from_numpy(rng.standard_normal((6, 6)).astype(np.float32)).to(dev)
+    a, b = m @ m.T + 6 * torch.eye(6, device=dev), torch.ones(6, device=dev)
+    solve = graphs.Captured(lambda a, b: torch.linalg.solve_ex(a, b, check_errors=False).result,
+                            dev, name="solve_ex alone")
+    want = torch.linalg.solve_ex(a, b, check_errors=False).result
+    for call in ("first", "replay"):
+        require_equal(f"graphs: solve_ex captured, {call}", solve(a, b).view(torch.int32),
+                      want.view(torch.int32))
+    log("graphs: the cooperative speckle launch (memset + cudaLaunchCooperativeKernel) and "
+        "solve_ex capture; their replays equal the eager calls bit for bit")
+
+    def pipe(**cfg):
+        return port.StereoPipeline.from_arrays(*arrays, port.PipelineConfig(**cfg), device=dev)
+
+    outputs = port.Outputs.all()
+    bm = port.StereoBMConfig
+    lines = []
+    for label, cfg, fr, enc, profiled in (
+            ("BM", {}, frames, "mono8", GRAPH_PROFILED),
+            ("BM lr_check", {"stereobm": bm(lr_check=True)}, frames, "mono8", GRAPH_PROFILED),
+            ("SGM 4 paths 128d", {"stereobm": bm(algorithm="sgm", sgm_paths=4,
+                                                 num_disparities=128)}, sframes, "mono8",
+             GRAPH_PROFILED),
+            # its eager frame is ~59,000 launches: one frame in each profiler window
+            ("SGM 8 paths", {"stereobm": bm(algorithm="sgm", sgm_paths=8)}, sframes, "mono8",
+             1),
+            ("Bayer", {}, frames, "bayer_grbg8", GRAPH_PROFILED),
+            ("bilateral iters 1", {"bilateral": port.BilateralConfig(enabled=True, iters=1)},
+             frames, "mono8", GRAPH_PROFILED)):
+        lines.append(graph_pipeline(torch, timing, pipe(**cfg), fr[:GRAPH_FRAMES], outputs,
+                                    label, enc, profiled))
+    lines.append(graph_batch(torch, timing, pipe(), frames[:GRAPH_BATCH], outputs))
+    lines.append(graph_vo(torch, port, timing, vo_mod, planar_model(calib),
+                          [(left, right) for left, right, _ in slam_frames[:GRAPH_FRAMES]], dev))
+    lines += graph_bench_chains(torch, port, timing, bench, dev)
+    return lines
+
+
 def run_bench(torch, port, bench, dev):
     """The port's bench, ``python3 -m ros_gpu_stereo_processor_tpu_torch.bench``,
     in a subprocess on the card at the JAX bench's defaults, not cut (B 8,
@@ -1649,6 +2025,8 @@ def main() -> int:
         stereobm_kernel,
     )
     from ros_gpu_stereo_processor_tpu_torch.ops import features
+    from ros_gpu_stereo_processor_tpu_torch.models import vo as vo_mod
+    from ros_gpu_stereo_processor_tpu_torch.utils import graphs
     from ros_gpu_stereo_processor_tpu_torch.parallel import frontend, multihost
     from ros_gpu_stereo_processor_tpu_torch.parallel.mesh import make_mesh
     from ros_gpu_stereo_processor_tpu_torch.ops import color
@@ -1890,6 +2268,11 @@ def main() -> int:
         _, got, _ = drive(torch, _build, lr_pipe, sframes[:1], outputs, per_frame, 1)
         compare_outputs(got[0], lr_cpu.process(*sframes[0], outputs).fetch(),
                         "SGM lr_check frame 0")
+
+    # -- the compiled dispatch: captured variants beside the eager step --------
+    with phase("graphs", seconds):
+        e2e += run_graphs(torch, port, timing, bench, graphs, speckle_kernel, vo_mod, calib,
+                          arrays, frames, sframes, slam_frames()[0], dev)
 
     # -- the row-band mesh end to end ----------------------------------------
     with phase("mesh e2e", seconds):

@@ -12,9 +12,10 @@ function names, writing the same record keys.
   * ``value`` (``dense_disparity_fps_752x480_64d``, frames/s/chip): batches
     of B frames (``BENCH_BATCH``, 8) of the frame step (``_pipeline_step``,
     BM defaults, disparity and point cloud), each frame's outputs reduced to
-    a float32 checksum on the device and accumulated there; ``BENCH_ITERS``
-    (10) batches enqueued back to back, closed by one synchronize.  Nothing
-    in the window reads back to the host.  ``vs_baseline`` = fps / 20.
+    a float32 checksum on the device and accumulated there, the batch one
+    CUDA graph (the JAX bench's jitted ``lax.scan``); ``BENCH_ITERS`` (10)
+    batches enqueued back to back, closed by one synchronize.  Nothing in
+    the window reads back to the host.  ``vs_baseline`` = fps / 20.
   * ``e2e_fps``: fresh frames through the native ingest ring and its pinned
     uploader (``StreamingIngest.frames_prefetch``), ``process_batch`` of
     ``BENCH_E2E_BATCH`` (8) frames and a ``SenderPool`` worker copying each
@@ -23,13 +24,14 @@ function names, writing the same record keys.
     step per frame, over ``BENCH_PF_FRAMES`` (24); ``latency_ms_p50/p95``:
     ring push → published, with frames fed at 70 % of that rate.
   * ``stage_ms``: upload, rectify, disparity, disparity_vis, pointcloud and
-    the whole step, ms per frame (the reference's TIMING line).
+    the whole step, ms per frame, each stage set run eagerly (the
+    reference's TIMING line).
   * ``sgm_ms_64d`` / ``sgm_ms_128d``: the 4-path SGM matcher (K4–K6), ms
-    per frame.
+    per frame, a batch of B frames one CUDA graph.
   * ``roofline``: K1, K2, K3 and the SGM matcher against their bounds
     (utils/roofline.py), beside the card's name and power limit.
   * ``slam_compute_ms_frame``: the frame step and VO (``_vo_first`` then
-    ``_vo_core``) chained over B frames; ``slam_fps``:
+    ``_vo_core``) chained over B frames, one CUDA graph; ``slam_fps``:
     ``StereoSlam.run_stream(async_mapping=True)`` over a planar sequence of
     ``BENCH_SLAM_FRAMES`` (24) frames.
 
@@ -37,7 +39,10 @@ Each metric is the median of ``BENCH_REPEATS`` (3) runs, with its min and
 max.  A window is closed by ``torch.cuda.synchronize()`` and then read on
 the host clock; the roofline's kernels are timed by CUDA events.  On the
 card the kernels run (``"kernels": "cuda"``), with ``--device cpu`` their
-plain versions (``"kernels": "plain"``); nothing falls back.  ``BENCH_E2E``,
+plain versions (``"kernels": "plain"``); nothing falls back.  The timed
+units of work are captured CUDA graphs on the card (``"dispatch":
+"graph"``, utils/graphs.py), the functions themselves on the CPU
+(``"dispatch": "eager"``).  ``BENCH_E2E``,
 ``BENCH_STAGES``, ``BENCH_SGM``, ``BENCH_ROOFLINE`` and ``BENCH_SLAM`` set
 to ``0`` leave a section out.
 
@@ -69,6 +74,7 @@ from ros_gpu_stereo_processor_tpu_torch.models.pipeline import StereoPipeline, _
 from ros_gpu_stereo_processor_tpu_torch.models.vo import _vo_core, _vo_first
 from ros_gpu_stereo_processor_tpu_torch.ops import _build
 from ros_gpu_stereo_processor_tpu_torch.utils.calib import StereoCameraModel, euroc_like_model
+from ros_gpu_stereo_processor_tpu_torch.utils import graphs
 from ros_gpu_stereo_processor_tpu_torch.utils.device import card_line, require_device
 from ros_gpu_stereo_processor_tpu_torch.utils.io import synthetic_stereo_pair
 
@@ -138,7 +144,8 @@ def _model_tensors(model, dev):
 def _frame_runner(model, cfg: PipelineConfig, outputs: Outputs, dev):
     """The compute section's unit of work: ``run(lefts, rights)`` enqueues
     one frame step per frame of the (B, H, W) stacks and returns the frames'
-    checksums stacked on the device (the JAX bench's ``lax.scan``)."""
+    checksums stacked on the device; on the card the batch is one captured
+    graph (the JAX bench's jitted ``lax.scan``)."""
     maps, Q = _model_tensors(model, dev)
 
     def run(lefts, rights):
@@ -147,7 +154,7 @@ def _frame_runner(model, cfg: PipelineConfig, outputs: Outputs, dev):
                                      outputs=outputs, bm=cfg.stereobm, speckle=cfg.speckle))
             for i in range(len(lefts))])
 
-    return run
+    return graphs.Captured(run, dev, name="bench compute batch")
 
 
 def _enqueue_batches(run, lefts, rights, iters: int) -> torch.Tensor:
@@ -343,7 +350,8 @@ def _e2e_metric(model, left, right, cfg, dev):
 def _sgm_runner(cfg: StereoBMConfig):
     """The SGM section's unit of work: ``run(lefts, rights)`` → each frame's
     ``sum(disparity) + sum(valid)`` from the fused 4-path SGM (P1 10, P2
-    120), stacked on the device."""
+    120), stacked on the device; a batch on the card is one captured graph
+    (on the device of the stacks)."""
     from ros_gpu_stereo_processor_tpu_torch.ops.sgm_kernel import compute_disparity_sgm_fused
 
     def run(lefts, rights):
@@ -353,7 +361,7 @@ def _sgm_runner(cfg: StereoBMConfig):
             sums.append(d.sum() + v.sum())
         return torch.stack(sums)
 
-    return run
+    return graphs.Captured(run, name="bench SGM batch")
 
 
 def _sgm_metric(model, left, right, dev, ndisp=64):
@@ -466,7 +474,8 @@ def _slam_chain(model, cfg: PipelineConfig, dev):
     ``_vo_first`` on the first and ``_vo_core`` on each later one, the
     tracked state carried along (the dependency chain ``StereoSlam``
     executes), and returns each ``_vo_core``'s (n, R, t, rms) on the
-    device."""
+    device; on the card the whole chain is one captured graph (the JAX
+    bench's jitted scan)."""
     maps, Q = _model_tensors(model, dev)
     outputs = Outputs.of("disparity", "rect_mono_left")
     cam = dict(k=512, threshold=20.0, fx=model.fx, cx=model.left.calib.cx,
@@ -487,7 +496,7 @@ def _slam_chain(model, cfg: PipelineConfig, dev):
             steps.append((n, R, t, rms))
         return steps
 
-    return run
+    return graphs.Captured(run, dev, name="bench SLAM-compute chain")
 
 
 def _slam_checksum(steps) -> torch.Tensor:
@@ -560,7 +569,8 @@ def _slam_metric(dev, shape):
 
 def _stage_breakdown(model, left, right, cfg, dev):
     """ms per frame of each stage set (the reference's TIMING line: upload,
-    rectify, disparity, disparity_vis, pointcloud, total), each window of
+    rectify, disparity, disparity_vis, pointcloud, total), each run
+    eagerly, op by op, as the reference times its stages; each window of
     ``BENCH_STAGE_ITERS`` steps closed by a synchronize; every step's
     outputs reduced to an on-device checksum.  ``upload`` copies both
     host frames from pageable memory, as ``StereoPipeline.process`` does;
@@ -598,7 +608,7 @@ def _stage_breakdown(model, left, right, cfg, dev):
     l_d, r_d = pipe._to_device(left), pipe._to_device(right)
     for name, o in stages.items():
         out[name], spread[name] = window_ms(
-            lambda o=o: _checksum(pipe._step(l_d, r_d, o, "mono8")))
+            lambda o=o: _checksum(pipe._eager(l_d, r_d, o, "mono8")))
     pipe.senders.shutdown()
     return out, spread
 
@@ -623,7 +633,8 @@ def _headline(record) -> dict:
             return {k: short(v) for k, v in x.items()}
         return x
 
-    head = {k: record[k] for k in ("metric", "unit", "kernels", "repeats") if k in record}
+    head = {k: record[k] for k in ("metric", "unit", "kernels", "dispatch", "repeats")
+            if k in record}
     head["device"] = record["device"].get("card", record["device"]["platform"])
     for k in HEADLINE_METRICS:
         if k in record:
@@ -657,7 +668,8 @@ def main(argv=None) -> int:
                   "card": card_line()}
     record = {"metric": "dense_disparity_fps_752x480_64d", "unit": "frames/s/chip",
               "shape": [H, W], "repeats": _repeats(),
-              "kernels": "cuda" if dev.type == "cuda" else "plain", "device": device}
+              "kernels": "cuda" if dev.type == "cuda" else "plain",
+              "dispatch": "graph" if dev.type == "cuda" else "eager", "device": device}
     _build.reset_launch_counts()
 
     def compute():

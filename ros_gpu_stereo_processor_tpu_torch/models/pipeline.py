@@ -12,6 +12,11 @@ reference's orchestrator ``StereoProcessor::imageCb``
   * Frames are enqueued on the current CUDA stream and not awaited: a frame
     records a CUDA event, :meth:`FrameResult.fetch` waits on it, and
     ``config.max_in_flight`` bounds how many frames may be outstanding.
+  * Each (flag set, encoding, config) variant of the step is compiled once,
+    as the JAX pipeline jits it: on the card a CUDA graph per input shape
+    (utils/graphs.py), so a frame is one graph launch and the copies in and
+    out; ``process_batch`` replays one graph for the whole batch.  Every
+    frame's outputs are its own, however long they are held.
 
 A pipeline runs on the card (``device="cuda"``, the default) unless the
 caller asks for ``device="cpu"``.  There is no device switch beyond that:
@@ -66,6 +71,7 @@ from ros_gpu_stereo_processor_tpu_torch.ops import speckle as speckle_ops
 from ros_gpu_stereo_processor_tpu_torch.ops import stereobm_kernel
 from ros_gpu_stereo_processor_tpu_torch.parallel import frontend as par
 from ros_gpu_stereo_processor_tpu_torch.parallel.mesh import Mesh
+from ros_gpu_stereo_processor_tpu_torch.utils import graphs
 from ros_gpu_stereo_processor_tpu_torch.utils import msgs as msgs_mod
 from ros_gpu_stereo_processor_tpu_torch.utils.calib import StereoCameraModel
 from ros_gpu_stereo_processor_tpu_torch.utils.device import require_device
@@ -267,6 +273,13 @@ def _mesh_disparity(rect_mono, bm: StereoBMConfig, speckle: SpeckleConfig,
     return mesh.gather(disp), mesh.gather(valid)
 
 
+def _on(img, device) -> torch.Tensor:
+    """An image (tensor or numpy array) as a tensor on ``device``."""
+    if isinstance(img, torch.Tensor):
+        return img.to(device)
+    return torch.from_numpy(np.ascontiguousarray(img)).to(device)
+
+
 @dataclasses.dataclass
 class FrameResult:
     """Device-tensor outputs of one frame step, with the CUDA event recorded
@@ -374,6 +387,8 @@ class StereoPipeline:
             max_workers=max(1, config.publisher_queue_size + 1)
         )
         self.timer = StageTimer()
+        # one step per (outputs, encoding, config): _get_variant
+        self._variants: Dict[tuple, object] = {}
         # bounded dispatch depth (config.max_in_flight): the reference syncs
         # every frame (src/StereoProcessor.cpp:284); we keep up to
         # max_in_flight frames outstanding and wait for the oldest before
@@ -415,11 +430,11 @@ class StereoPipeline:
         logger.info("reconfigured: %s %s %s", cfg.stereobm, cfg.speckle, cfg.bilateral)
 
     def _to_device(self, img) -> torch.Tensor:
-        if isinstance(img, torch.Tensor):
-            return img.to(self.device)
-        return torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
+        return _on(img, self.device)
 
-    def _step(self, left, right, outputs: Outputs, encoding: str):
+    def _eager(self, left, right, outputs: Outputs, encoding: str):
+        """The frame step run op by op (no graph): the reference the
+        captured variants are held to, and the bench's per-stage timing."""
         cfg = self.config
         return _pipeline_step(
             self._to_device(left), self._to_device(right),
@@ -429,6 +444,52 @@ class StereoPipeline:
             mesh=self._line, band_maps=self._band_maps,
             shard_axis=self.shard_axis, shard_mode=self.shard_mode,
         )
+
+    def _get_variant(self, outputs: Outputs, encoding: str, batch: bool = False):
+        """The step for ``(outputs, encoding)`` under the current config, as
+        the JAX pipeline's ``_get_variant`` keys its jitted steps (and
+        ``process_batch`` its scans, under ``"batch"``): one entry per
+        (flag set, encoding, matcher, speckle, bilateral settings).  On one
+        device the entry is a :class:`graphs.Captured` step (one CUDA graph
+        per input shape on the card, the step itself on the CPU); a batch
+        entry takes (B, H, W[, C]) stacks and returns stacked outputs.  On a
+        mesh the entry runs the step eagerly: the merge loop of the
+        row-band speckle filter reads a flag on the host each round."""
+        cfg = self.config
+        key = (outputs.flags, encoding, cfg.stereobm, cfg.speckle, cfg.bilateral)
+        if batch:
+            key = ("batch",) + key
+        fn = self._variants.get(key)
+        if fn is not None:
+            return fn
+        kw = dict(encoding=encoding, outputs=outputs, bm=cfg.stereobm,
+                  speckle=cfg.speckle, bilateral=cfg.bilateral, mesh=self._line,
+                  band_maps=self._band_maps, shard_axis=self.shard_axis,
+                  shard_mode=self.shard_mode)
+        maps, Q = self._rect_maps, self._Q
+
+        def step(left, right):
+            return _pipeline_step(left, right, maps, Q, **kw)
+
+        def steps(lefts, rights):
+            outs = [step(lefts[i], rights[i]) for i in range(lefts.shape[0])]
+            return {k: torch.stack([o[k] for o in outs]) for k in outs[0]} if outs else {}
+
+        run = steps if batch else step
+        if self.mesh is None:
+            name = f"{'batch ' if batch else ''}step {'+'.join(sorted(outputs.flags))} {encoding}"
+            fn = graphs.Captured(run, self.device, name=name)
+        else:
+            def fn(left, right, dev=self.device):
+                return run(_on(left, dev), _on(right, dev))
+        self._variants[key] = fn
+        return fn
+
+    def _step(self, left, right, outputs: Outputs, encoding: str):
+        """One frame step through its variant: on the card, one graph
+        replay (inputs copied into its static buffers, outputs copied
+        out)."""
+        return self._get_variant(outputs, encoding)(left, right)
 
     def process(
         self,
@@ -440,7 +501,10 @@ class StereoPipeline:
     ) -> FrameResult:
         """Enqueue one frame and return without waiting for it — unless
         ``config.max_in_flight`` frames are already outstanding, in which
-        case the oldest is waited for first (bounded pipelining)."""
+        case the oldest is waited for first (bounded pipelining).  On one
+        card the frame is its variant's graph replay (the first frame of a
+        variant and shape runs eagerly, then captures); on a mesh it runs
+        eagerly."""
         out = self._step(left, right, outputs, encoding)
         devices = [self.device] if self.mesh is None else self._line.unique_devices()
         events = []
@@ -465,12 +529,13 @@ class StereoPipeline:
         outputs: Outputs,
         encoding: str = "mono8",
     ) -> Dict[str, torch.Tensor]:
-        """Process a batch of frames, lefts/rights (B, H, W[, C]), one frame
-        step after another.  Returns a dict of stacked outputs (B leading
-        axis)."""
-        steps = [self._step(lefts[i], rights[i], outputs, encoding)
-                 for i in range(len(lefts))]
-        return {k: torch.stack([s[k] for s in steps]) for k in steps[0]} if steps else {}
+        """Process a batch of frames, lefts/rights (B, H, W[, C]), in one
+        device dispatch on the card: the B frame steps are captured as one
+        CUDA graph (per B and frame shape) that writes the stacked outputs,
+        and each call replays it once, as the JAX pipeline runs
+        ``jit(lax.scan)``.  Returns a dict of stacked outputs (B leading
+        axis), fresh on every call.  On a mesh the steps run eagerly."""
+        return self._get_variant(outputs, encoding, batch=True)(lefts, rights)
 
     def timed_process(self, left, right, outputs, encoding="mono8", header=None):
         """Synchronous process with timing — the TIMING instrumentation hook

@@ -13,9 +13,12 @@ The port of ``ros_gpu_stereo_processor_tpu/models/vo.py``.  Per frame:
      read).
 
 Poses are world←camera (``T_wc``): ``x_w = R x_c + t``.  The device work of
-a frame runs on the device of its inputs; on a CUDA device ``dispatch``
-copies the frame's packed host bundle into pinned host memory without
-blocking and records an event that ``complete`` waits on.
+a frame runs on the VO's device; on a CUDA device ``dispatch`` replays the
+step as a CUDA graph (``_vo_first`` on the first frame, ``_vo_core`` after,
+each with ``_pack_host_bundle``, captured once per camera and image shape
+as the JAX package jits them; utils/graphs.py), copies the frame's packed
+host bundle into pinned host memory without blocking and records an event
+that ``complete`` waits on.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from ros_gpu_stereo_processor_tpu_torch.ops import features as feat_ops
-from ros_gpu_stereo_processor_tpu_torch.utils import lie
+from ros_gpu_stereo_processor_tpu_torch.utils import graphs, lie
 from ros_gpu_stereo_processor_tpu_torch.utils.device import require_device
 from ros_gpu_stereo_processor_tpu_torch.utils.division import div_const, rdiv
 
@@ -301,6 +304,8 @@ class StereoVisualOdometry:
         self.fast_threshold = fast_threshold
         self.min_matches = min_matches
         self.state = VOState(R_wc=np.eye(3), t_wc=np.zeros(3), prev=None)
+        # the dispatch's steps: _step
+        self._steps: dict = {}
         # guards pose/state mutation when a mapping thread applies BA
         # corrections concurrently (StereoSlam async mapping)
         self.pose_lock = threading.RLock()
@@ -308,35 +313,52 @@ class StereoVisualOdometry:
     def reset(self) -> None:
         self.state = VOState(R_wc=np.eye(3), t_wc=np.zeros(3), prev=None)
 
-    def _tensor(self, x) -> torch.Tensor:
-        if isinstance(x, torch.Tensor):
-            return x.to(self.device)
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-
-    def dispatch(self, rect_left, disparity):
-        """Enqueue this frame's VO device work and advance the device-side
-        frame chain immediately — the next ``dispatch`` may follow before
-        this frame's :meth:`complete` (pipelined stepping).  Returns an
-        opaque pending record; call :meth:`complete` once per dispatch, in
-        order."""
+    def _step(self, has_motion: bool):
+        """The dispatch's device work for a frame with (``_vo_core``) or
+        without (``_vo_first``) a previous frame, packed host bundle
+        included: one :class:`graphs.Captured` step per motion flag,
+        feature settings and camera (the image shape keys its graphs),
+        whose outputs are (TrackedFrame, bundle)."""
         m = self.model
         cam = dict(
             k=self.num_features, threshold=self.fast_threshold,
             fx=m.fx, cx=m.left.calib.cx, cy=m.left.calib.cy,
             baseline=m.baseline, disparity_offset=m.disparity_offset,
         )
-        st = self.state
-        rect_left, disparity = self._tensor(rect_left), self._tensor(disparity)
-        has_motion = st.prev is not None
-        if not has_motion:
+        key = (has_motion,) + tuple(cam.values())
+        fn = self._steps.get(key)
+        if fn is not None:
+            return fn
+
+        def first(rect_left, disparity):
             kp, pts, pv = _vo_first(rect_left, disparity, **cam)
-            bundle = _pack_host_bundle(kp, pts, pv)
-        else:
+            return TrackedFrame(kp, pts, pv), _pack_host_bundle(kp, pts, pv)
+
+        def core(prev, rect_left, disparity):
             kp, pts, pv, n, R, t, rms = _vo_core(
-                st.prev.kp, st.prev.pts_cam, st.prev.pts_valid,
-                rect_left, disparity, **cam)
-            bundle = _pack_host_bundle(kp, pts, pv, n, R, t, rms)
-        cur = TrackedFrame(kp=kp, pts_cam=pts, pts_valid=pv)
+                prev.kp, prev.pts_cam, prev.pts_valid, rect_left, disparity, **cam)
+            return TrackedFrame(kp, pts, pv), _pack_host_bundle(kp, pts, pv, n, R, t, rms)
+
+        fn = self._steps[key] = graphs.Captured(
+            core if has_motion else first, self.device,
+            name="vo core" if has_motion else "vo first")
+        return fn
+
+    def dispatch(self, rect_left, disparity):
+        """Enqueue this frame's VO device work and advance the device-side
+        frame chain immediately — the next ``dispatch`` may follow before
+        this frame's :meth:`complete` (pipelined stepping).  On the card the
+        work is one graph replay: the previous frame's keypoints and points
+        and this frame's inputs are copied into the graph's inputs, and the
+        frame's outputs are its own (a keyframe or a relocalization may hold
+        them for any time).  Returns an opaque pending record; call
+        :meth:`complete` once per dispatch, in order."""
+        st = self.state
+        has_motion = st.prev is not None
+        if has_motion:
+            cur, bundle = self._step(True)(st.prev, rect_left, disparity)
+        else:
+            cur, bundle = self._step(False)(rect_left, disparity)
         st.prev = cur
         return (cur, self._prefetch(bundle), has_motion)
 

@@ -17,10 +17,18 @@ missing ``nvcc``, a failed build or a refused launch raises.
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` so that no
 multiply-add is contracted into an FMA — the kernels reproduce the plain
 PyTorch versions' float32 rounding step by step.  Never ``--use_fast_math``.
+
+Launch counts under CUDA graphs (utils/graphs.py): a wrapper called while
+its thread captures a graph enqueues nothing that runs, so inside
+:func:`recording` it adds its launch to the recording instead of to
+``launches``; the graph adds the recorded launches to the counters on every
+replay (:func:`add_launches`), when the kernels do run.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -29,7 +37,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Counter, Dict, Iterator, List, Optional, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -43,6 +51,7 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _registry: Dict[str, "Kernel"] = {}
+_capture = threading.local()   # .launches: the recording of this thread's capture
 
 
 def _nvcc() -> str:
@@ -124,10 +133,11 @@ class Kernel:
     """One C entry point of the kernel library, with a launch counter.
 
     ``launches`` is a plain integer that goes up by one each time the
-    wrapper launches its kernel, and nowhere else; ``chip_smoke.py`` zeroes
-    it before a run and reads it after, to show the run went through the
-    kernel.  ``argtypes`` are the ctypes of the C parameters (the stream,
-    last, is added here)."""
+    kernel is launched, and nowhere else: by the wrapper, or by the replay
+    of a graph that captured it (never at capture); ``chip_smoke.py``
+    zeroes it before a run and reads it after, to show the run went
+    through the kernel.  ``argtypes`` are the ctypes of the C parameters
+    (the stream, last, is added here)."""
 
     def __init__(self, symbol: str, argtypes: Sequence):
         self.symbol = symbol
@@ -148,7 +158,11 @@ class Kernel:
         err = self._fn(*args, stream)
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err}")
-        self.launches += 1
+        recorded = getattr(_capture, "launches", None)
+        if recorded is None:
+            self.launches += 1
+        else:
+            recorded[self.symbol] += 1
 
 
 def kernels() -> Dict[str, Kernel]:
@@ -159,6 +173,24 @@ def kernels() -> Dict[str, Kernel]:
 def reset_launch_counts() -> None:
     for k in _registry.values():
         k.launches = 0
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Counter[str]]:
+    """Launches by this thread's wrappers go into the yielded counter (by C
+    symbol) instead of their ``launches``: a graph capture."""
+    prev = getattr(_capture, "launches", None)
+    _capture.launches = collections.Counter()
+    try:
+        yield _capture.launches
+    finally:
+        _capture.launches = prev
+
+
+def add_launches(recorded: Counter[str]) -> None:
+    """Add a graph's recorded launches to the counters: one replay."""
+    for symbol, n in recorded.items():
+        _registry[symbol].launches += n
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -80,10 +80,11 @@ def _bilateral_core(
         total_rows = H
     f32 = torch.float32
     # Python constants meet float32 tensors as JAX's weak types do: rounded
-    # to float32 once
-    edge_disc = torch.tensor(max(1.0, float(ndisp) * float(edge_threshold)), dtype=f32,
-                             device=dev)
-    max_disc = torch.tensor(float(ndisp) * float(max_disc_threshold), dtype=f32, device=dev)
+    # to float32 once (filled on the device: no host copy, which a CUDA
+    # graph capture refuses)
+    edge_disc = torch.full((), max(1.0, float(ndisp) * float(edge_threshold)), dtype=f32,
+                           device=dev)
+    max_disc = torch.full((), float(ndisp) * float(max_disc_threshold), dtype=f32, device=dev)
     inv_2sr2 = 1.0 / (2.0 * float(sigma_range) * float(sigma_range))
 
     # spatial weight table: exp(-sqrt(dy²+dx²)/(radius+1)) (OpenCV's
