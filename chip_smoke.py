@@ -44,8 +44,9 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
        * the row-band mesh, ``make_mesh(4, devices=["cuda:0"] * 4)``, default
          BM config: 6 frames, each launching K1 and K2 once per band per
          call (8 and 4), K7 once per band (4), the band label rounds at
-         least once and K3 never; 2 compared with the CPU run of the same
-         4-band mesh;
+         least once (24 merge rounds × 4 bands recorded in its graph, the
+         rounds past the fixed point gated off on the device) and K3 never;
+         2 compared with the CPU run of the same 4-band mesh;
      and, with ``lr_check=True``, one BM frame (K2 twice) and one SGM frame,
      each compared with the CPU run; on the mesh, one frame with speckle
      off against the single-device card pipeline, and one SGM frame (K4,
@@ -62,9 +63,10 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      exact), device launches and busy share per frame by ``torch.profiler``
      over 3.
      On one card every frame step is a replay of its variant's CUDA graph
-     (utils/graphs.py; the mesh paths stay eager): a frame's first run is
-     eager and captures, and every kernel count goes up at the replays
-     (never at the capture), so each frame's launch gate holds as it did.
+     (utils/graphs.py; a mesh whose band line is one card too): a frame's
+     first run is eager and captures, and every kernel count goes up at the
+     replays (never at the capture), so each frame's launch gate holds as
+     it did.
      The ``graphs`` phase (after SGM ``lr_check``) sets each captured
      variant beside its eager step in this call: first K3's cooperative
      launch and ``torch.linalg.solve_ex`` captured alone, equal to their
@@ -79,7 +81,20 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      (runtime launches, graph launches, copies, memsets), device events
      and busy share per frame, captured and eager; gates: at most 16 host
      calls a BM or SGM frame and 32 a SLAM-compute frame, one graph
-     launch a step;
+     launch a step.  The ``mesh graphs`` phase (after the slabs) does the
+     same for each mesh variant on 4 (slabs 128/8: 8) entries of
+     ``cuda:0``: BM, BM ``lr_check``, 4-path SGM at 128 disparities, the
+     bilateral filter (iters 1), slabs 64/4 and 128/8, 6 frames each; for
+     each, one replay under ``torch.cuda.set_sync_debug_mode("error")``
+     held to the CPU mesh, and the band label launches of a frame as
+     recorded and as run (the merge loop's ``done`` flags read after an
+     eager frame); before them the band label rounds' ``done`` gate on the
+     card (off: equal to the ungated launch; on: a copy of the field), and
+     after them the graph nodes and device µs of one gated merge round
+     (the BM mesh frame at 24 and 48 merge rounds) and the planar SLAM
+     run's windowed BA solves, each captured result equal to its eager
+     solve bit for bit, one graph per window size, BA ms per keyframe and
+     the solve's ms captured beside eager;
   5. runs the SLAM engine, ``StereoSlam`` on the card with the default
      ``PipelineConfig`` (BM) and ``SlamConfig``, over the port's planar
      synthetic sequence (utils/synth.py, rendered with numpy while the
@@ -249,6 +264,9 @@ GRAPH_FRAMES = 9    # each path of the graphs phase: frame 0 runs eagerly and ca
 GRAPH_BATCH = 8     # process_batch's B in the graphs phase
 GRAPH_PROFILED = 4  # frames (or batches) in each profiler window of the graphs phase
 GRAPH_HOST_CALLS_MAX = 16       # per BM or SGM frame, captured
+MESH_GRAPH_FRAMES = 6   # each variant of the mesh graphs phase: frame 0 runs eagerly and captures
+MESH_GRAPH_PROFILED = 2  # frames in each profiler window of the mesh graphs phase
+GATED_PROBE_ROUNDS = 48  # merge rounds of the gated-round probe (the 4-band default is 24)
 GRAPH_SLAM_HOST_CALLS_MAX = 32  # per frame of the SLAM-compute chain (pipeline + VO), captured
 # the CUDA runtime and driver calls the profiler records that enqueue work:
 # kernel, cooperative and graph launches, copies and memsets
@@ -1907,6 +1925,202 @@ def run_graphs(torch, port, timing, bench, graphs, speckle_kernel, vo_mod, calib
     return lines
 
 
+def merge_rounds_run(torch, speckle_kernel, step):
+    """One eager mesh frame ``step()`` with the band label rounds' calls
+    watched: (calls, calls whose ``done`` flag was 0 at the launch, i.e.
+    rounds that ran, times bands).  The flags are read after the frame:
+    each round's flag is a tensor of its own, never written again."""
+    flags, real = [], speckle_kernel.band_labels
+
+    def watched(lab, conn_x, conn_y, rounds, done=None):
+        flags.append(done)
+        return real(lab, conn_x, conn_y, rounds, done)
+
+    speckle_kernel.band_labels = watched
+    try:
+        step()
+    finally:
+        speckle_kernel.band_labels = real
+    torch.cuda.synchronize()
+    return len(flags), sum(1 for d in flags if d is None or int(d) == 0)
+
+
+def check_gated_bl(torch, speckle, speckle_kernel, disp, valid, sp_cfg, dev):
+    """The band label rounds' ``done`` gate on the card, on band 1 of a
+    BANDS-band split of a BM frame: gated off equals the ungated launch,
+    gated on equals a copy of the field, at 2 rounds (the merge loop's) and
+    64."""
+    hb, w = disp.shape[0] // BANDS, disp.shape[1]
+    d, v = disp[hb:2 * hb].contiguous(), valid[hb:2 * hb].contiguous()
+    cx, cy = speckle._connectivity(d, v, sp_cfg.max_diff)
+    lab = torch.where(v, hb * w + torch.arange(hb * w, dtype=torch.int32, device=dev).reshape(
+        hb, w), torch.full((), disp.numel(), dtype=torch.int32, device=dev))
+    off, on = (torch.full((), f, dtype=torch.int32, device=dev) for f in (0, 1))
+    for rounds in (2, 64):
+        want = speckle_kernel.band_labels(lab, cx, cy, rounds)
+        got_off = speckle_kernel.band_labels(lab, cx, cy, rounds, off)
+        got_on = speckle_kernel.band_labels(lab, cx, cy, rounds, on)
+        torch.cuda.synchronize()
+        require_equal(f"BL gated off, {rounds} rounds", got_off, want)
+        require_equal(f"BL gated on, {rounds} rounds", got_on, lab)
+        if torch.equal(want, lab):
+            raise AssertionError("BL: the ungated rounds changed nothing, so the gate is untested")
+    log(f"BL gate: off equals the ungated launch, on equals a copy of the field "
+        f"({hb}x{w}, 2 and 64 rounds)")
+
+
+def gated_round_cost(torch, port, arrays, make_mesh, frames, outputs, dev):
+    """Graph nodes and device µs of one gated merge round: the captured BM
+    mesh frame at the default round count (4·BANDS + 8) and at
+    GATED_PROBE_ROUNDS (the rounds past the fixed point are gated), each in
+    a profiler window; the difference over the extra rounds."""
+    out = {}
+    for rounds in (4 * BANDS + 8, GATED_PROBE_ROUNDS):
+        cfg = port.PipelineConfig(speckle=port.SpeckleConfig(boundary_merge_rounds=rounds))
+        pipe = port.StereoPipeline.from_arrays(*arrays, cfg,
+                                               mesh=make_mesh(BANDS, devices=[dev] * BANDS))
+        pipe.process(*frames[0], outputs).block_until_ready()     # the capture
+        out[rounds] = dispatch_profile(torch, lambda i: pipe.process(
+            *frames[1 + i % (len(frames) - 1)], outputs), MESH_GRAPH_PROFILED)
+        pipe.senders.shutdown()
+    lo, hi = (out[r] for r in sorted(out))
+    extra = GATED_PROBE_ROUNDS - (4 * BANDS + 8)
+    res = {"graph_nodes_per_gated_round": (hi["device_events_per_frame"]
+                                           - lo["device_events_per_frame"]) / extra,
+           "device_us_per_gated_round": (hi["device_busy_ms_per_frame"]
+                                         - lo["device_busy_ms_per_frame"]) * 1e3 / extra,
+           "frame_device_events": {str(r): o["device_events_per_frame"] for r, o in out.items()},
+           "frame_busy_ms": {str(r): o["device_busy_ms_per_frame"] for r, o in out.items()}}
+    log(f"mesh graphs: a gated merge round costs {res['graph_nodes_per_gated_round']:.1f} "
+        f"graph nodes and {res['device_us_per_gated_round']:.2f} device us (BM, {BANDS} bands; "
+        f"frames at {sorted(out)} rounds: {res['frame_device_events']} device events, "
+        f"{res['frame_busy_ms']} busy ms)")
+    return res
+
+
+def run_mesh_graphs(torch, port, timing, speckle_kernel, make_mesh, arrays, frames, sframes,
+                    dev):
+    """Each single-card mesh variant captured beside its eager step
+    (``graph_pipeline``: MESH_GRAPH_FRAMES frames held to the end, each equal
+    to the eager step bit for bit, one graph, one graph launch a frame, host
+    calls gated, timed and pipelined ms, host calls, device events and busy
+    share per frame captured and eager): the BANDS-band BM, BM
+    ``lr_check``, 4-path SGM at 128 disparities, the bilateral filter
+    (iters 1), and slabs 64/4 and 128/8.  For each, a replay under
+    ``set_sync_debug_mode("error")`` (inputs on the card) held to the CPU
+    mesh (``compare_outputs``; ``compare_bilateral`` for the bilateral
+    filter), and the band label launches of one frame as recorded and as
+    run.  Returns the JSON lines."""
+    outputs = port.Outputs.all()
+    bm = port.StereoBMConfig
+    lines = []
+    for label, cfg, fr, mode, n in (
+            ("mesh BM", {}, frames, "rows", BANDS),
+            ("mesh BM lr_check", {"stereobm": bm(lr_check=True)}, frames, "rows", BANDS),
+            ("mesh SGM 4 paths 128d", {"stereobm": bm(algorithm="sgm", sgm_paths=4,
+                                                      num_disparities=128)}, sframes, "rows",
+             BANDS),
+            ("mesh bilateral iters 1",
+             {"bilateral": port.BilateralConfig(enabled=True, iters=1)}, frames, "rows", BANDS),
+            ("slab 64/4", {"stereobm": bm(num_disparities=64)}, frames, "disp", 4),
+            ("slab 128/8", {"stereobm": bm(num_disparities=128)}, frames, "disp", 8)):
+        config = port.PipelineConfig(**cfg)
+
+        def mesh_pipe(devices):
+            return port.StereoPipeline.from_arrays(*arrays, config, shard_mode=mode,
+                                                   mesh=make_mesh(n, devices=devices))
+
+        pipe = mesh_pipe([dev] * n)
+        fr = fr[:MESH_GRAPH_FRAMES]
+        line = graph_pipeline(torch, timing, pipe, fr, outputs, label,
+                              profiled=MESH_GRAPH_PROFILED)
+        left, right = (torch.from_numpy(x).to(dev) for x in fr[1])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = pipe.process(left, right, outputs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        cpu = mesh_pipe(["cpu"] * n)
+        want = cpu.process(*fr[1], outputs).fetch()
+        (compare_bilateral if "bilateral" in cfg else compare_outputs)(
+            res.fetch(), want, f"{label}: a replay with no host sync, against the CPU mesh")
+        recorded, ran = merge_rounds_run(torch, speckle_kernel,
+                                         lambda: pipe._eager(*fr[1], outputs, "mono8"))
+        log(f"{label}: band label launches a frame {recorded} recorded ({recorded // n} merge "
+            f"rounds x {n} bands), {ran} ran ({ran / n:g} rounds before the fixed point)")
+        line.update(bands=n, bl_launches_recorded_per_frame=recorded,
+                    bl_launches_run_per_frame=ran, no_host_sync_replay=True,
+                    replay_equals_cpu_mesh=True)
+        lines.append(line)
+        for p in (pipe, cpu):
+            p.senders.shutdown()
+    return lines
+
+
+def run_ba_graphs(torch, port, timing, calib, frames, dev):
+    """The planar SLAM run (``run_stream(depth=2)``) with each windowed BA
+    solve recorded: every window's captured result against its eager solve
+    (``Captured.fn``) on the same inputs, bit for bit; one graph per window
+    shape; BA ms per keyframe (the engine's stage timer), and the solve's
+    ms captured (a replay, inputs copied in) beside eager, by CUDA events
+    over every window, with host calls and device events per solve from
+    the profiler on the last window.  Returns the JSON line."""
+    t0 = time.perf_counter()
+    slam = port.StereoSlam(planar_model(calib), device=dev)
+    solve, windows = slam._ba_solve, []
+
+    def recorded(M):
+        entry = solve(M)
+
+        def call(*arrays):
+            out = entry(*arrays)
+            windows.append((entry, [a.copy() for a in arrays], host_tree(torch, out)))
+            return out
+        return call
+
+    slam._ba_solve = recorded
+    n_frames = len(list(slam.run_stream(iter(frames), depth=2)))
+    slam.pipeline.senders.shutdown()
+    if not windows:
+        raise AssertionError("BA graphs: the planar run solved no window")
+
+    def eager(entry, arrays):
+        return entry.fn(*(torch.from_numpy(a).to(dev) for a in arrays))
+
+    ms = {"captured": [], "eager": []}
+    for i, (entry, arrays, got) in enumerate(windows):
+        same_bits(got, host_tree(torch, eager(entry, arrays)), f"BA window {i}")
+        ms["captured"].append(timing.timed(lambda: entry(*arrays), dev)[1])
+        ms["eager"].append(timing.timed(lambda: eager(entry, arrays), dev)[1])
+    shapes = sorted({arrays[0].shape[0] for _, arrays, _ in windows})
+    if len(slam._ba_solves) != len(shapes) or any(
+            e.graph_count() != 1 for e in slam._ba_solves.values()):
+        raise AssertionError(f"BA graphs: {len(slam._ba_solves)} entries for window sizes "
+                             f"{shapes}, graphs {[e.graph_count() for e in slam._ba_solves.values()]}")
+    entry, arrays, _ = windows[-1]
+    prof = {name: dispatch_profile(torch, lambda i: fn(), 3) for name, fn in (
+        ("captured", lambda: entry(*arrays)), ("eager", lambda: eager(entry, arrays)))}
+    stage = slam.timer.as_dict()["ba"]
+    line = {"path": "graphs BA windows (planar SLAM)", "frames": n_frames,
+            "windows": len(windows), "window_sizes": shapes, "bit_exact": True,
+            "ba_ms_per_keyframe": stage["mean_ms"], "ba_calls": stage["count"],
+            **{f"solve_{k}_median_ms": statistics.median(v) for k, v in ms.items()},
+            **{f"solve_{k}_p75_ms": float(np.percentile(v, 75)) for k, v in ms.items()},
+            **{f"{k}_{f}": prof[k][f] for k in prof for f in (
+                "host_calls_per_frame", "graph_launches_per_frame", "device_events_per_frame",
+                "device_busy_ms_per_frame")},
+            "seconds": time.perf_counter() - t0}
+    log(f"graphs BA: {len(windows)} windows of sizes {shapes} over {n_frames} planar frames, "
+        f"each captured solve equal to the eager one bit for bit, {len(slam._ba_solves)} "
+        f"graphs; BA {stage['mean_ms']:.3f} ms per keyframe (captures included); the solve "
+        f"median {line['solve_captured_median_ms']:.3f} ms captured against "
+        f"{line['solve_eager_median_ms']:.3f} eager; host calls a solve "
+        f"{line['captured_host_calls_per_frame']:.1f} against "
+        f"{line['eager_host_calls_per_frame']:.1f}")
+    return line
+
+
 def run_bench(torch, port, bench, dev):
     """The port's bench, ``python3 -m ros_gpu_stereo_processor_tpu_torch.bench``,
     in a subprocess on the card at the JAX bench's defaults, not cut (B 8,
@@ -2323,6 +2537,16 @@ def main() -> int:
                                 "BL": speckle_kernel.BAND_LABELS}, dev)
         e2e += lines
         launches.update(more)
+
+    # -- the single-card mesh variants and the BA windows as graphs ----------
+    with phase("mesh graphs", seconds):
+        check_gated_bl(torch, speckle, speckle_kernel, disp, valid, sp, dev)
+        e2e += run_mesh_graphs(torch, port, timing, speckle_kernel, make_mesh, arrays, frames,
+                               sframes, dev)
+        e2e.append({"path": "graphs mesh gated round",
+                    **gated_round_cost(torch, port, arrays, make_mesh, frames[:3], outputs,
+                                       dev)})
+        e2e.append(run_ba_graphs(torch, port, timing, calib, slam_frames()[0], dev))
 
     # -- Bayer input, the bilateral tier, bilateral by band ------------------
     bm_kernels = {"K1": (k1, 2), "K2": (stereobm_kernel.KERNEL, 1),

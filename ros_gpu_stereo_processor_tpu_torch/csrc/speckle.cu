@@ -10,7 +10,11 @@
 //      version ops/speckle.py::_max_propagate.
 // A third entry, speckle_band_labels, runs the same rounds in min mode on a
 // given label field: the band-local label rounds of the row-sharded speckle
-// filter (parallel/frontend.py), which have no TPU kernel of their own.
+// filter (parallel/frontend.py), which have no TPU kernel of their own.  Its
+// merge loop runs a fixed number of rounds on the device (no host read per
+// round, so a mesh frame can be one CUDA graph); a device-side `done` flag
+// that the loop sets at its fixed point gates each launch, which then only
+// copies its field through (the JAX while_loop's exit, as a gate).
 //
 // What K3 computes: label = minimum raster index of the pixel's 4-connected
 // component, where neighbours connect iff both are valid and |d - d'| <=
@@ -115,6 +119,7 @@ struct Args {
   uint8_t* conn_x;        // (H, W) linked to the left neighbour (K3 writes it)
   uint8_t* conn_y;        // (H, W) linked to the upper neighbour (K3 writes it)
   int* changed;           // `iters` flags, zeroed before the launch
+  const int* done;        // band labels: a 0-d flag, nonzero = copy `field` and leave; or null
   int H, W, iters;
   float max_diff;
 };
@@ -382,7 +387,9 @@ __device__ void column_tiles(const Args& a, int round, int* smem) {
 
 // The whole walk: `iters` rounds (a row pass, then a column pass), leaving
 // after the first round that moved nothing.  Every thread of every block
-// reaches every grid barrier: no thread returns early.
+// reaches every grid barrier: no thread returns early, but for the `done`
+// gate below, which every thread reads at entry and leaves by together,
+// before any barrier.
 template <class Op, bool kLabels>
 __global__ void __launch_bounds__(256) propagate_kernel(Args a) {
   extern __shared__ int smem[];
@@ -390,6 +397,14 @@ __global__ void __launch_bounds__(256) propagate_kernel(Args a) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
   const int gwarp = blockIdx.x * warps + warp, n_warps = gridDim.x * warps;
+  if (!kLabels && a.done != nullptr && __ldcg(a.done) != 0) {
+    // the row-band merge loop has converged: the rounds would change
+    // nothing, so the output is the field as it is
+    const int n = a.H * a.W;
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x)
+      a.val[i] = a.field[i];
+    return;
+  }
   const int rounds = a.iters > 0 ? a.iters : 1;
   for (int round = 0; round < rounds; ++round) {
     int* s_row = smem + warp * line_region(a.W);
@@ -483,7 +498,7 @@ extern "C" int speckle_labels(const void* disp, const void* valid, void* lab, vo
                               int iters, void* stream) {
   Args a{static_cast<const float*>(disp), static_cast<const uint8_t*>(valid), nullptr,
          static_cast<int*>(lab), static_cast<uint8_t*>(conn_x), static_cast<uint8_t*>(conn_y),
-         static_cast<int*>(changed), H, W, iters, max_diff};
+         static_cast<int*>(changed), nullptr, H, W, iters, max_diff};
   return propagate<MinOp, true>(a, static_cast<cudaStream_t>(stream));
 }
 
@@ -491,11 +506,11 @@ namespace {
 
 template <class Op>
 int propagate_field(const void* field, void* out, const void* conn_x, const void* conn_y,
-                    void* changed, int H, int W, int iters, void* stream) {
+                    void* changed, const void* done, int H, int W, int iters, void* stream) {
   Args a{nullptr, nullptr, static_cast<const int*>(field), static_cast<int*>(out),
          static_cast<uint8_t*>(const_cast<void*>(conn_x)),
-         static_cast<uint8_t*>(const_cast<void*>(conn_y)), static_cast<int*>(changed), H, W,
-         iters, 0.0f};
+         static_cast<uint8_t*>(const_cast<void*>(conn_y)), static_cast<int*>(changed),
+         static_cast<const int*>(done), H, W, iters, 0.0f};
   return propagate<Op, false>(a, static_cast<cudaStream_t>(stream));
 }
 
@@ -507,12 +522,17 @@ int propagate_field(const void* field, void* out, const void* conn_x, const void
 extern "C" int speckle_maxprop(const void* field, void* out, const void* conn_x,
                                const void* conn_y, void* changed, int H, int W, int iters,
                                void* stream) {
-  return propagate_field<MaxOp>(field, out, conn_x, conn_y, changed, H, W, iters, stream);
+  return propagate_field<MaxOp>(field, out, conn_x, conn_y, changed, nullptr, H, W, iters,
+                                stream);
 }
 
-// The band-local label rounds: the same arguments, min in place of max.
+// The band-local label rounds: K7's arguments, min in place of max, and
+// `done`: null, or a device int32 read once at the kernel's entry; when it
+// is nonzero (the row-band merge loop has converged) the launch copies
+// `field` to `out` and runs no round.
 extern "C" int speckle_band_labels(const void* field, void* out, const void* conn_x,
-                                   const void* conn_y, void* changed, int H, int W,
-                                   int iters, void* stream) {
-  return propagate_field<MinOp>(field, out, conn_x, conn_y, changed, H, W, iters, stream);
+                                   const void* conn_y, void* changed, const void* done, int H,
+                                   int W, int iters, void* stream) {
+  return propagate_field<MinOp>(field, out, conn_x, conn_y, changed, done, H, W, iters,
+                                stream);
 }

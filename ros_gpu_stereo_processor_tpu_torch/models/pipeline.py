@@ -15,8 +15,11 @@ reference's orchestrator ``StereoProcessor::imageCb``
   * Each (flag set, encoding, config) variant of the step is compiled once,
     as the JAX pipeline jits it: on the card a CUDA graph per input shape
     (utils/graphs.py), so a frame is one graph launch and the copies in and
-    out; ``process_batch`` replays one graph for the whole batch.  Every
-    frame's outputs are its own, however long they are held.
+    out; ``process_batch`` replays one graph for the whole batch.  A mesh
+    whose band line is one card (``make_mesh(4, devices=["cuda:0"] * 4)``)
+    is captured the same way; a line over several devices or processes
+    runs eagerly.  Every frame's outputs are its own, however long they
+    are held.
 
 A pipeline runs on the card (``device="cuda"``, the default) unless the
 caller asks for ``device="cpu"``.  There is no device switch beyond that:
@@ -452,9 +455,12 @@ class StereoPipeline:
         (flag set, encoding, matcher, speckle, bilateral settings).  On one
         device the entry is a :class:`graphs.Captured` step (one CUDA graph
         per input shape on the card, the step itself on the CPU); a batch
-        entry takes (B, H, W[, C]) stacks and returns stacked outputs.  On a
-        mesh the entry runs the step eagerly: the merge loop of the
-        row-band speckle filter reads a flag on the host each round."""
+        entry takes (B, H, W[, C]) stacks and returns stacked outputs.  So
+        is a mesh entry whose band line is one device in this process: the
+        sharded frontend reads nothing back to the host there.  A line over
+        several devices runs the step eagerly (a graph per device and the
+        peer copies between them are not captured), and so does a line
+        that spans processes (its collectives are host exchanges)."""
         cfg = self.config
         key = (outputs.flags, encoding, cfg.stereobm, cfg.speckle, cfg.bilateral)
         if batch:
@@ -476,8 +482,10 @@ class StereoPipeline:
             return {k: torch.stack([o[k] for o in outs]) for k in outs[0]} if outs else {}
 
         run = steps if batch else step
-        if self.mesh is None:
-            name = f"{'batch ' if batch else ''}step {'+'.join(sorted(outputs.flags))} {encoding}"
+        line = self._line
+        if line is None or (not line.spans_processes and len(line.unique_devices()) == 1):
+            name = (f"{'batch ' if batch else ''}{'' if line is None else 'mesh '}step "
+                    f"{'+'.join(sorted(outputs.flags))} {encoding}")
             fn = graphs.Captured(run, self.device, name=name)
         else:
             def fn(left, right, dev=self.device):
@@ -503,7 +511,8 @@ class StereoPipeline:
         ``config.max_in_flight`` frames are already outstanding, in which
         case the oldest is waited for first (bounded pipelining).  On one
         card the frame is its variant's graph replay (the first frame of a
-        variant and shape runs eagerly, then captures); on a mesh it runs
+        variant and shape runs eagerly, then captures), as on a mesh whose
+        band line is that card; on a line over several devices it runs
         eagerly."""
         out = self._step(left, right, outputs, encoding)
         devices = [self.device] if self.mesh is None else self._line.unique_devices()
@@ -534,7 +543,8 @@ class StereoPipeline:
         CUDA graph (per B and frame shape) that writes the stacked outputs,
         and each call replays it once, as the JAX pipeline runs
         ``jit(lax.scan)``.  Returns a dict of stacked outputs (B leading
-        axis), fresh on every call.  On a mesh the steps run eagerly."""
+        axis), fresh on every call.  On a line over several devices or
+        processes the steps run eagerly."""
         return self._get_variant(outputs, encoding, batch=True)(lefts, rights)
 
     def timed_process(self, left, right, outputs, encoding="mono8", header=None):

@@ -31,6 +31,7 @@ as numpy arrays, so a JAX engine's state carries across.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -46,6 +47,7 @@ from ros_gpu_stereo_processor_tpu_torch.models.vo import (
 )
 from ros_gpu_stereo_processor_tpu_torch.ops import features as feat_ops
 from ros_gpu_stereo_processor_tpu_torch.parallel.dist_ba import bundle_adjust_sharded
+from ros_gpu_stereo_processor_tpu_torch.utils import graphs
 from ros_gpu_stereo_processor_tpu_torch.utils.device import require_device
 from ros_gpu_stereo_processor_tpu_torch.utils.evaluate import Trajectory
 from ros_gpu_stereo_processor_tpu_torch.utils.timing import StageTimer
@@ -79,6 +81,26 @@ def _host(*tensors: torch.Tensor) -> list:
         out.append(flat[at:at + t.numel()].reshape(tuple(t.shape)))
         at += t.numel()
     return out
+
+
+def _landmark_rms(p: BA.BAProblem, mask: torch.Tensor) -> torch.Tensor:
+    """(N,) reprojection rms of each landmark over the window's
+    observations of it."""
+    r, _ = BA.reprojection_residuals(p)
+    rn2 = torch.sum(r * r, -1)
+    return torch.sqrt(torch.sum(rn2 * mask, 0) / torch.clamp(torch.sum(mask, 0), min=1.0))
+
+
+def _window_solve(R, t, points, obs, mask, prior, *, fx: float, cx: float, cy: float,
+                  iters: int, fix_first_pose: bool):
+    """The windowed BA solve from world→camera poses (M, 3, 3), (M, 3),
+    landmarks (N, 3), observations (M, N, 2), their mask (M, N) and the
+    point prior (N,): the refined (R, t, points) and each landmark's
+    reprojection rms at the solution.  :meth:`StereoSlam._local_ba`'s device
+    work, captured per window shape (``StereoSlam._ba_solve``)."""
+    p = BA.BAProblem(R=R, t=t, points=points, obs=obs, mask=mask, fx=fx, cx=cx, cy=cy)
+    pf, _ = BA.bundle_adjust(p, iters=iters, fix_first_pose=fix_first_pose, point_prior=prior)
+    return pf.R, pf.t, pf.points, _landmark_rms(pf, mask)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -322,6 +344,8 @@ class StereoSlam:
         # shared with vo.pose_lock: one lock guards pose, TrackStore and
         # KeyframeStore against the async mapping worker
         self._map_lock = self.vo.pose_lock
+        # the windowed BA solves: _ba_solve
+        self._ba_solves: dict = {}
         # per-stage wall timing of the SLAM step: dense = pipeline enqueue,
         # vo = the VO bundle wait, map_host = keyframe/TrackStore numpy work
         # (map_match its device match), ba = windowed BA
@@ -514,6 +538,23 @@ class StereoSlam:
     def _cam(self):
         m = self.model
         return m.fx, m.left.calib.cx, m.left.calib.cy
+
+    def _ba_solve(self, M: int) -> graphs.Captured:
+        """The windowed BA solve over ``M`` keyframes (:func:`_window_solve`),
+        as the JAX engine jits it: one :class:`graphs.Captured` per window
+        shape (M, the padded landmark capacity), solver settings and camera
+        scalars (``BAProblem`` carries fx, cx, cy as Python floats, which a
+        graph bakes in), so on the card a keyframe's solve is one graph
+        replay with the inputs copied in; on the CPU it is the function."""
+        cfg = self.config
+        fx, cx, cy = self._cam()
+        kw = dict(fx=fx, cx=cx, cy=cy, iters=cfg.ba_iters, fix_first_pose=True)
+        key = (M, cfg.ba_landmarks) + tuple(kw.values())
+        fn = self._ba_solves.get(key)
+        if fn is None:
+            fn = self._ba_solves[key] = graphs.Captured(
+                functools.partial(_window_solve, **kw), self.device, name=f"BA window {M}")
+        return fn
 
     def _relocalize_solve(self, cur, tr_desc, tr_alive, tr_pos, R_wc0, t_wc0):
         """Unlocked part of relocalization: match the lost frame against a
@@ -715,25 +756,22 @@ class StereoSlam:
             t_kf_old = win[-1].t_wc.copy()
         N = cfg.ba_landmarks
 
-        fx, cx, cy = self._cam()
-        p = BA.BAProblem(R=_f32(R_cw, dev), t=_f32(t_cw, dev), points=_f32(pts_w, dev),
-                         obs=_f32(obs, dev), mask=_f32(mask, dev), fx=fx, cx=cx, cy=cy)
         lm_valid = np.zeros((N,), np.float32)
         lm_valid[:n_eff] = 1.0
-        prior = _f32(cfg.stereo_point_prior * lm_valid, dev)
+        arrays = [np.asarray(a, np.float32)
+                  for a in (R_cw, t_cw, pts_w, obs, mask, cfg.stereo_point_prior * lm_valid)]
+        # the solve, and the per-landmark reprojection rms at the solution: a
+        # landmark that cannot fit the rigid window solve is purged from the
+        # map below
         if self._ba_mesh is not None and N % self._ba_mesh.size == 0:
+            R, t, pts, obs_d, mask_d, prior = (_f32(a, dev) for a in arrays)
+            p = BA.BAProblem(R, t, pts, obs_d, mask_d, *self._cam())
             pf, _ = bundle_adjust_sharded(p, self._ba_mesh, iters=cfg.ba_iters,
                                           point_prior=prior)
+            solved = (pf.R, pf.t, pf.points, _landmark_rms(pf, mask_d))
         else:
-            pf, _ = BA.bundle_adjust(p, iters=cfg.ba_iters, point_prior=prior)
-
-        # per-landmark reprojection rms at the solution: a landmark that
-        # cannot fit the rigid window solve is purged from the map below
-        r_dev, _ = BA.reprojection_residuals(pf)
-        rn2 = torch.sum(r_dev * r_dev, -1)
-        lm_rms = torch.sqrt(torch.sum(rn2 * p.mask, 0)
-                            / torch.clamp(torch.sum(p.mask, 0), min=1.0))
-        Rf, tf, pts_f, lm_rms_h = _host(pf.R, pf.t, pf.points, lm_rms)
+            solved = self._ba_solve(len(win))(*arrays)
+        Rf, tf, pts_f, lm_rms_h = _host(*solved)
         with self._map_lock:
             for m, kf in enumerate(win):
                 # project onto SO(3): the solver's rotations carry small

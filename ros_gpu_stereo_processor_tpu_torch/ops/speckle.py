@@ -93,10 +93,14 @@ def _labels_scan(
 
 
 def _label_rounds(lab: torch.Tensor, conn_x: torch.Tensor, conn_y: torch.Tensor,
-                  rounds: int) -> torch.Tensor:
+                  rounds: int, done: torch.Tensor | None = None) -> torch.Tensor:
     """``rounds`` row/column segmented min-scans of a given label field —
     the band-local label rounds of the row-sharded speckle filter
-    (parallel/frontend.py), plain version of ``speckle_kernel.band_labels``."""
+    (parallel/frontend.py), plain version of ``speckle_kernel.band_labels``.
+    A nonzero ``done`` (0-d) gives a copy of ``lab``: read here in Python,
+    where the kernel reads it on the device."""
+    if done is not None and bool(done):
+        return lab.clone()
     for _ in range(rounds):
         lab = _segmented_min_scan(lab, conn_x, axis=1)
         lab = _segmented_min_scan(lab, conn_y, axis=0)

@@ -11,9 +11,10 @@ two TPU kernels:
     link masks, the row-sharded speckle filter's size broadcast.
 
 :func:`band_labels` runs K7's rounds in min mode on a given label field: the
-band-local label rounds of the row-sharded filter (parallel/frontend.py).
-It has its own C entry and launch counter, so K7's launches are counted
-apart.  Component sizing stays in ops/speckle.py.
+band-local label rounds of the row-sharded filter (parallel/frontend.py),
+gated by the merge loop's device-side ``done`` flag.  It has its own C
+entry and launch counter, so K7's launches are counted apart; a gated
+launch counts as a launch.  Component sizing stays in ops/speckle.py.
 
 Each function is its op's one dispatch point: a CUDA tensor launches the
 kernel, a CPU tensor runs the plain version of ops/speckle.py
@@ -26,6 +27,7 @@ refused launch raises.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -37,9 +39,8 @@ KERNEL = _build.Kernel(
     [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                              ctypes.c_int],
 )
-_PROPAGATE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-MAXPROP = _build.Kernel("speckle_maxprop", _PROPAGATE_ARGS)
-BAND_LABELS = _build.Kernel("speckle_band_labels", _PROPAGATE_ARGS)
+MAXPROP = _build.Kernel("speckle_maxprop", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3)
+BAND_LABELS = _build.Kernel("speckle_band_labels", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3)
 
 
 def labels(
@@ -91,13 +92,22 @@ def max_propagate(field: torch.Tensor, conn_x: torch.Tensor, conn_y: torch.Tenso
 
 
 def band_labels(lab: torch.Tensor, conn_x: torch.Tensor, conn_y: torch.Tensor,
-                rounds: int) -> torch.Tensor:
+                rounds: int, done: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``rounds`` row/column min-propagation rounds of a given (H, W) int32
-    label field over bool link masks."""
+    label field over bool link masks.  ``done``: None, or a 0-d int32 flag on
+    the field's device; where it is nonzero the result is a copy of ``lab``
+    and no round runs.  The kernel reads the flag on the device (no host
+    read, so the call captures into a CUDA graph); the plain version reads
+    it in Python."""
     _check_propagate(lab, conn_x, conn_y)
+    if done is not None and (done.dtype != torch.int32 or done.numel() != 1
+                             or done.device != lab.device):
+        raise ValueError(f"done must be one int32 on {lab.device}; got {done.dtype} "
+                         f"{tuple(done.shape)} on {done.device}")
     if not lab.is_cuda:
-        return speckle_plain._label_rounds(lab, conn_x, conn_y, rounds)
-    return _launch_propagate(BAND_LABELS, lab, conn_x, conn_y, rounds)
+        return speckle_plain._label_rounds(lab, conn_x, conn_y, rounds, done)
+    return _launch_propagate(BAND_LABELS, lab, conn_x, conn_y, rounds,
+                             None if done is None else _build.ptr(done))
 
 
 def _check_propagate(field, conn_x, conn_y) -> None:
@@ -110,7 +120,9 @@ def _check_propagate(field, conn_x, conn_y) -> None:
 
 
 def _launch_propagate(kernel: _build.Kernel, field: torch.Tensor, conn_x: torch.Tensor,
-                      conn_y: torch.Tensor, iters: int) -> torch.Tensor:
+                      conn_y: torch.Tensor, iters: int, *gate) -> torch.Tensor:
+    """One call of K7 or the band label rounds; ``gate``: the band label
+    rounds' ``done`` pointer (None for no gate)."""
     if not (conn_x.is_cuda and conn_y.is_cuda
             and conn_x.device == field.device == conn_y.device):
         raise ValueError("field and masks must be on the same CUDA device")
@@ -122,5 +134,5 @@ def _launch_propagate(kernel: _build.Kernel, field: torch.Tensor, conn_x: torch.
     changed = torch.empty(max(int(iters), 1), dtype=torch.int32, device=field.device)
     with torch.cuda.device(field.device):
         kernel(_build.ptr(field), _build.ptr(out), _build.ptr(conn_x), _build.ptr(conn_y),
-               _build.ptr(changed), H, W, int(iters))
+               _build.ptr(changed), *gate, H, W, int(iters))
     return out

@@ -10,8 +10,10 @@ tensors or this process's bands and return this process's bands.  Where
 the JAX version runs ``shard_map`` with ``ppermute``/``psum``/``pmin``/
 ``all_gather`` over a named mesh axis, the port runs a loop over its parts,
 and the collectives are the mesh's methods (``shift_down``, ``shift_up``,
-``psum``, ``pmin``, ``any``, ``all_gather``; :func:`halo_exchange` is built
-on the shifts).
+``psum``, ``pmin``, ``all_gather``; :func:`halo_exchange` is built on the
+shifts).  On a mesh in one process nothing here reads a device value on
+the host, so a frame on one card captures as one CUDA graph
+(models/pipeline.py).
 
   * :func:`remap_row_sharded`: each band rectifies its own rows with K1 (the
     band's rows of the maps over the replicated source frame).
@@ -26,8 +28,10 @@ on the shifts).
     volume there), winners combined by a ``pmin`` over packed keys; equal
     to the single-device matcher.
   * :func:`filter_speckles_row_sharded`: band-local labels, a cross-band
-    merge loop, band-local sizing, boundary-record reconciliation and K7,
-    the max-propagation of the reconciled sizes.
+    merge loop of a fixed round count on the device (its label rounds
+    gated by a device-side ``done`` flag), band-local sizing,
+    boundary-record reconciliation and K7, the max-propagation of the
+    reconciled sizes.
   * :func:`bilateral_row_sharded`: the bilateral filter per band on rows
     extended by ``2·iters·radius`` (plain torch, as on one device);
     bit-identical to one device while the halo fits in a band.
@@ -430,27 +434,38 @@ def speckle_size_fields(
 
     def merge(lab):
         # boundary rows connected across a band edge take the smaller label
+        # (conn_top implies the neighbour row is valid, so its label is used
+        # as it is: the JAX merge's sentinel for invalid rows never shows)
         prev_lab = mesh.shift_down([x[-1] for x in lab])
         next_lab = mesh.shift_up([x[0] for x in lab])
         for i, x in enumerate(lab):
-            pl = torch.where(prev_v[i], prev_lab[i], fill[i])
-            nl = torch.where(next_v[i], next_lab[i], fill[i])
-            top = torch.where(conn_top[i], torch.minimum(x[0], pl), x[0])
-            bot = torch.where(conn_bot[i], torch.minimum(x[-1], nl), x[-1])
+            top = torch.where(conn_top[i], torch.minimum(x[0], prev_lab[i]), x[0])
+            bot = torch.where(conn_bot[i], torch.minimum(x[-1], next_lab[i]), x[-1])
             x[0] = top
             x[-1] = bot
         return lab
 
     # label propagation to global convergence (or max_merge rounds): each
-    # round is 2 band-local label rounds, then the boundary merge; monotone,
-    # so an unchanged round is the fixed point and the loop stops there
+    # round is 2 band-local label rounds, then the boundary merge.  Exactly
+    # max_merge rounds run, with no host read: each round's changed flag is
+    # a psum, and a device-side `done` flag, set once a round changed
+    # nothing, gates the label rounds of the rounds after it.  Propagation
+    # is monotone, so a round at the fixed point changes nothing, and the
+    # labels are those of JAX's while_loop (i < max_merge & changed), capped
+    # runs included.  A mesh that spans processes (its psum an exchange
+    # through the host) also reads the flag and leaves the loop once it is
+    # set.
+    done = torch.zeros((), dtype=torch.int32, device=mesh.devices[0])
     for _ in range(max_merge):
-        new = [speckle_kernel.band_labels(x, cx, cy, 2) for x, (cx, cy) in zip(lab, conn)]
+        gates = mesh.replicate(done)
+        new = [speckle_kernel.band_labels(x, cx, cy, 2, d)
+               for x, (cx, cy), d in zip(lab, conn, gates)]
         if n > 1:
             new = merge(new)
-        changed = mesh.any([(a != b).any() for a, b in zip(new, lab)])
+        changed = mesh.psum([(a != b).any() for a, b in zip(new, lab)])[0]
+        done = done | ~changed
         lab = new
-        if not changed:
+        if mesh.spans_processes and bool(done):
             break
     lab = [torch.where(v, x, s) for v, x, s in zip(valid, lab, fill)]
     cnt = [_band_counts(x, sentinel, cap) for x in lab]
@@ -489,7 +504,11 @@ def filter_speckles_row_sharded(
       1. each band labels locally with global raster-index labels;
       2. merge rounds — 2 band-local label rounds, then each boundary row
          connected across a band edge takes the smaller label — until no
-         band changes, or ``4n + 8`` rounds (``merge_rounds`` when > 0);
+         band changes, or ``4n + 8`` rounds (``merge_rounds`` when > 0):
+         on a mesh in one process every one of those rounds is enqueued and
+         the rounds after the fixed point are gated off on the device (no
+         host read); a mesh that spans processes reads the flag each round
+         and stops there;
       3. band-local sizes capped at ``max_speckle_size + 1``, reconciled
          across bands through the (n, 2, W) boundary records;
       4. K7: the reconciled totals, raised at the boundary rows, are

@@ -21,8 +21,8 @@ methods that take the list of this process's parts:
   * :meth:`Mesh.shift_down` / :meth:`Mesh.shift_up`: ``ppermute`` i → i + 1
     and i + 1 → i, zeros at the ends;
   * :meth:`Mesh.psum`, :meth:`Mesh.pmin`: the sum (in entry order) and the
-    elementwise minimum, one copy per part;
-  * :meth:`Mesh.any`: ``psum(flag) > 0`` read on the host;
+    elementwise minimum, one copy per part, computed on the devices (no
+    host read);
   * :meth:`Mesh.all_gather`: the parts stacked, (n, ...).
 
 :meth:`Mesh.split` and :meth:`Mesh.gather` are the counterparts of placing
@@ -31,7 +31,9 @@ an array with ``row_sharded`` and reading it back whole;
 this process's (``indices`` = 0 .. n−1); parallel/multihost.py's process
 mesh has the same methods over ``torch.distributed``, with each process
 holding its own entries, so every function of parallel/frontend.py and
-parallel/dist_ba.py runs on either unchanged.
+parallel/dist_ba.py runs on either unchanged.  ``spans_processes`` says
+which: False here, True for a process mesh whose line reaches another
+process (its collectives then exchange through the host).
 """
 
 from __future__ import annotations
@@ -97,6 +99,12 @@ class Mesh:
     def unique_devices(self) -> List[torch.device]:
         return list(dict.fromkeys(self.devices))
 
+    @property
+    def spans_processes(self) -> bool:
+        """Whether a collective reaches another process: never, in one
+        process."""
+        return False
+
     # -- placement (on a line) ------------------------------------------------
 
     def split(self, x: torch.Tensor, dim: int = 0) -> List[torch.Tensor]:
@@ -138,10 +146,6 @@ class Mesh:
     def pmin(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """The elementwise minimum of the parts, one copy per part."""
         return self.replicate(_fold(parts, self.devices[0], torch.minimum))
-
-    def any(self, flags: Sequence[torch.Tensor]) -> bool:
-        """``psum(flag) > 0`` of one 0-d bool per part, read on the host."""
-        return bool(torch.stack([f.to(self.devices[0]) for f in flags]).any())
 
     def all_gather(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """Every part stacked, (n, ...), on the first device; what the parts

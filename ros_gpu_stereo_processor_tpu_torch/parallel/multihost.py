@@ -23,8 +23,10 @@ unchanged:
 
 Collectives: ``shift_down``/``shift_up`` (``ppermute``) are point-to-point
 sends and receives issued together by ``batch_isend_irecv``, so no order
-of them can deadlock; ``psum``/``pmin`` and the speckle merge loop's flag
-are ``all_reduce``; ``all_gather`` and ``gather`` are ``all_gather``.
+of them can deadlock; ``psum``/``pmin`` are ``all_reduce`` (so the speckle
+merge loop, whose changed flag is a ``psum``, reads it on the host and
+stops at its fixed point, where a mesh in one process runs every round
+on the device); ``all_gather`` and ``gather`` are ``all_gather``.
 With gloo, which has no CUDA send, receive or all-gather, every exchanged
 tensor is staged through host memory; the kernels still run on the card.
 
@@ -146,6 +148,10 @@ class ProcessMesh(Mesh):
     def _local(self) -> bool:
         return self.ranks == [self.rank]
 
+    @property
+    def spans_processes(self) -> bool:
+        return not self._local
+
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` as sent: bool as uint8, in host memory under gloo."""
         w = t.to(torch.uint8) if t.dtype == torch.bool else t
@@ -183,10 +189,6 @@ class ProcessMesh(Mesh):
 
     def pmin(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         return self.replicate(self._reduce(parts, torch.minimum, dist.ReduceOp.MIN))
-
-    def any(self, flags: Sequence[torch.Tensor]) -> bool:
-        mine = torch.stack([f.to(self.devices[0]) for f in flags]).any().to(torch.int32)
-        return bool(self._reduce([mine], torch.maximum, dist.ReduceOp.MAX))
 
     def _shift(self, parts: Sequence[torch.Tensor], step: int) -> List[torch.Tensor]:
         """Part i receives part i − step (zeros where that is off the line):

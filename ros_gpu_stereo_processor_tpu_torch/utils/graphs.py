@@ -1,12 +1,15 @@
 """CUDA graph capture and replay: the port's counterpart of ``jax.jit``.
 
 The JAX package compiles its frame step once per variant
-(``models/pipeline.py::_get_variant``), a batch of frames into one dispatch
-(``process_batch``, ``jit(lax.scan)``) and the VO step (``models/vo.py``'s
-jitted ``_vo_core``).  The port runs the same functions eagerly, one host
-launch per kernel and copy; :class:`Captured` records such a function's
-launches once as a CUDA graph and then enqueues the whole step with one
-graph launch.
+(``models/pipeline.py::_get_variant``, the row-band mesh step included), a
+batch of frames into one dispatch (``process_batch``, ``jit(lax.scan)``),
+the VO step (``models/vo.py``'s jitted ``_vo_core``) and the windowed BA
+solve (``models/ba.py``).  Run eagerly, each is one host launch per kernel
+and copy; :class:`Captured` records such a function's launches once as a
+CUDA graph and then enqueues the whole step with one graph launch.  Its
+users: the frame step on one card or on a mesh whose band line is one
+card, ``process_batch``, the VO step, ``models/slam.py``'s BA solve per
+window shape, and the bench.
 
   * One graph per input signature (the shape and dtype of every tensor
     input, and the device), captured at the first call with it.  That call
@@ -17,7 +20,8 @@ graph launch.
     ``capture_error_mode="thread_local"`` so that other threads (SLAM's
     mapping thread, the publishers) keep launching meanwhile, and with the
     garbage collector held off (a collection that destroyed an earlier
-    graph inside the capture would invalidate it).
+    graph inside the capture would invalidate it).  Two threads never
+    capture at once.
   * Every later call copies its inputs into the graph's static input
     buffers (a numpy array straight from host memory, a tensor device to
     device), replays the graph and copies the outputs out.
@@ -58,6 +62,11 @@ from torch.utils import _pytree as pytree
 from ros_gpu_stereo_processor_tpu_torch.ops import _build
 
 _ALIGN = 64   # bytes: every output's offset in the arena
+# one capture at a time in the process: a capture's start synchronizes the
+# device and empties the allocator's cache (torch.cuda.graph), which must
+# not fall inside another thread's capture (SLAM's mapping thread captures
+# its BA windows while the tracking thread may capture a new variant)
+_capture_lock = threading.Lock()
 
 
 class CaptureError(RuntimeError):
@@ -162,7 +171,7 @@ class _Graph:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with _build.recording() as launches, torch.cuda.graph(
+            with _capture_lock, _build.recording() as launches, torch.cuda.graph(
                     graph, capture_error_mode="thread_local"):
                 try:
                     self.arena, self.layout, self.out_spec = _pack(self._call())

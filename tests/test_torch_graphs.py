@@ -222,20 +222,24 @@ def test_failed_capture_names_the_op():
 
 
 def test_mesh_variants_run_eagerly():
-    """On a mesh the variant is the eager step (no graph helper), cached
-    under the same key as on one device."""
+    """On a mesh whose band line spans two devices the variant is the eager
+    step (no graph helper), cached under the same key as on one device; a
+    line on one device gets the graph helper, as one device does."""
     from ros_gpu_stereo_processor_tpu_torch.parallel.mesh import make_mesh
 
     rng = np.random.default_rng(0)
     maps = np.stack(np.meshgrid(np.arange(W, dtype=np.float32),
                                 np.arange(H, dtype=np.float32)), -1)
-    pipe = T.StereoPipeline.from_arrays(np.stack([maps, maps]), np.eye(4), W, H, 100.0, 0.1,
-                                        mesh=make_mesh(2, devices=["cpu"] * 2))
     left = rng.integers(0, 255, (H, W), np.uint8)
-    out = pipe.process(left, left, T.Outputs.of("rect_mono_left")).fetch()
-    np.testing.assert_array_equal(out["rect_mono_left"], left)
-    (fn,) = pipe._variants.values()
-    assert not isinstance(fn, graphs.Captured)
+    for devices, captured in ((["cpu:0", "cpu:1"], False), (["cpu"] * 2, True)):
+        pipe = T.StereoPipeline.from_arrays(np.stack([maps, maps]), np.eye(4), W, H, 100.0,
+                                            0.1, mesh=make_mesh(2, devices=devices))
+        res = pipe.process(left, left, T.Outputs.of("rect_mono_left"))
+        np.testing.assert_array_equal(res.fetch()["rect_mono_left"], left)
+        assert res.band_events == ()        # no CUDA device: no event at all
+        (fn,) = pipe._variants.values()
+        batch = pipe._get_variant(T.Outputs.of("rect_mono_left"), "mono8", batch=True)
+        assert isinstance(fn, graphs.Captured) == isinstance(batch, graphs.Captured) == captured
 
 
 # ---------------------------------------------------------------------------

@@ -68,7 +68,9 @@ def test_2d_mesh_construction():
     assert [p.tolist() for p in line.shift_down(parts)] == [[0, 0], [1, 5], [4, 2]]
     assert [p.tolist() for p in line.shift_up(parts)] == [[4, 2], [3, 9], [0, 0]]
     assert line.all_gather(parts).shape == (3, 2)
-    assert line.any([torch.tensor(False), torch.tensor(True), torch.tensor(False)])
+    # the speckle merge loop's changed flag: a psum of bools, left on the device
+    flags = [torch.tensor(False), torch.tensor(True), torch.tensor(False)]
+    assert [bool(f) for f in line.psum(flags)] == [True] * 3 and not line.spans_processes
 
 
 def test_frontend_on_rows_line_of_2d_mesh():
