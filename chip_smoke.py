@@ -171,6 +171,16 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
          equal, ``disparity_vis`` and the points too;
        * the bilateral filter by row band: 4 bands on ``["cuda:0"] * 4``
          against one device on the card, speckle off, 2 frames, exact;
+       * the publish path: 64 BM frames, ``Outputs.all()``, every output
+         published through ``enqueue_send`` to registered publishers (K1
+         128, K2 and K3 64 launches, counts set to 0 just before), frames
+         1–63 enqueued under ``set_sync_debug_mode("error")``; gates:
+         frames 0, 31 and 63's messages equal the CPU pipeline's, and in a
+         profiler window over 8 published frames every device→host copy is
+         ``Device -> Pinned`` on a stream that ran no K2 and no copy is
+         pageable; prints the copy time overlapping kernels, host ms a
+         frame with and without publishing, and pinned and pageable MB/s
+         (1.44 and 4.33 MB);
        * the serve daemon: a ``ServeDaemon`` on the card watching a
          temporary directory, the calibration dropped as
          ``camera_info_*.yaml`` after start, 20 pairs dropped one at a time
@@ -260,6 +270,11 @@ SIXDOF_VO_FRAMES = 6
 SIXDOF_SLAM_FRAMES = 8
 SIXDOF_BARS = (0.02, 0.02, 0.03)   # m, rad, m: VO ATE, VO final rotation, SLAM ATE
 BENCH_WINDOW_ITERS = 10   # the compute section's BENCH_ITERS
+PUBLISH_FRAMES = 64     # the publish phase: BM defaults, every output published
+PUBLISH_CHECKED = (0, 31, 63)
+PUBLISH_PROFILED = 8    # frames in the publish phase's profiler window
+PUBLISH_COPIES = 12     # device→host copies a frame: 11 outputs, the point cloud's two arrays
+LINK_REPS = 10
 GRAPH_FRAMES = 9    # each path of the graphs phase: frame 0 runs eagerly and captures
 GRAPH_BATCH = 8     # process_batch's B in the graphs phase
 GRAPH_PROFILED = 4  # frames (or batches) in each profiler window of the graphs phase
@@ -1540,6 +1555,213 @@ def run_serve(torch, port, _build, io, calib, kernels, frames, model, work, dev)
     return line, launches, served
 
 
+def compare_messages(got, want, label):
+    """Two published frames' messages (by output name) equal: images and
+    the disparity exact, the point cloud's xyz with equal NaN positions and
+    rtol 1e-5 and its packed RGB bitwise, every header and metadata field."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: messages {sorted(got)} vs {sorted(want)}")
+    for name, g in got.items():
+        w = want[name]
+        if type(g) is not type(w) or g.header != w.header:
+            raise AssertionError(f"{label} {name}: {type(g).__name__} {g.header} vs "
+                                 f"{type(w).__name__} {w.header}")
+        if name == "pointcloud":
+            pairs = [("rgb", g.rgb.view(np.int32), w.rgb.view(np.int32))]
+            ok = (g.xyz.dtype == w.xyz.dtype and np.array_equal(np.isnan(g.xyz), np.isnan(w.xyz))
+                  and np.allclose(g.xyz, w.xyz, rtol=1e-5, atol=0, equal_nan=True)
+                  and (g.height, g.width) == (w.height, w.width))
+        elif name == "disparity":
+            pairs = [("image", g.image, w.image)]
+            ok = (g.f, g.T, g.min_disparity, g.max_disparity, g.delta_d, g.valid_window) == \
+                (w.f, w.T, w.min_disparity, w.max_disparity, w.delta_d, w.valid_window)
+        else:
+            pairs = [("data", g.data, w.data)]
+            ok = (g.height, g.width, g.encoding) == (w.height, w.width, w.encoding)
+        for field, a, b in pairs:
+            ok = ok and a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+        if not ok:
+            raise AssertionError(f"{label} {name}: the card's and the CPU's messages differ")
+
+
+def published(pipe, port, keep):
+    """Register a publisher for every output of ``pipe`` that keeps the
+    messages of the frames ``keep`` and drops the others, as a node's
+    publisher drops a message once it is sent (their pinned memory goes back
+    to the cache).  Returns ({(name, header seq): message}, [(name, seq)
+    of every message published])."""
+    got, seen = {}, []
+
+    def publish(m, name):
+        seen.append((name, m.header.seq))
+        if m.header.seq in keep:
+            got[(name, m.header.seq)] = m
+
+    for name in port.Outputs.all().flags:
+        pipe.senders.register(name, lambda m, n=name: publish(m, n))
+    return got, seen
+
+
+def copy_windows(torch, prof):
+    """Device→host copies, kernels and host→device copies of a profiler
+    window, from its raw events: {"d2h": [(kind, stream, start, end)],
+    "h2d_kinds": {kind: n}, "k2_streams": streams that ran the block
+    matcher, "kernels": merged (start, end) intervals of every kernel}."""
+    d2h, h2d, k2, spans = [], {}, set(), []
+    for e in prof.profiler.kineto_results.events():
+        if not str(e.device_type()).endswith("CUDA") or e.duration_ns() <= 0:
+            continue
+        name, a = e.name(), e.start_ns()
+        b = a + e.duration_ns()
+        stream = e.device_resource_id()
+        if name.startswith("Memcpy DtoH"):
+            d2h.append((name, stream, a, b))
+        elif name.startswith("Memcpy HtoD"):
+            h2d[name] = h2d.get(name, 0) + 1
+        elif not name.startswith(("Memcpy", "Memset")):
+            spans.append((a, b))
+            if "bm_fused" in name:
+                k2.add(stream)
+    merged = []
+    for a, b in sorted(spans):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return {"d2h": d2h, "h2d_kinds": h2d, "k2_streams": k2, "kernels": merged}
+
+
+def link_rates(torch, hostcopy, dev):
+    """Device→host MB/s into pinned memory (the publish path's
+    ``start_host_copy``) and into pageable memory (``x.cpu()``) of a
+    1.44 MB and a 4.33 MB tensor: a fresh tensor each time, after a
+    synchronize, host clock, median of LINK_REPS."""
+    out = {}
+    for label, shape in (("1.44MB", (H, W)), ("4.33MB", (H, W, 3))):
+        x = torch.rand(shape, device=dev)
+        mb = x.numel() * x.element_size() / 1e6
+        for kind, copy in (("pinned", lambda y: hostcopy.start_host_copy(y).result()),
+                           ("pageable", lambda y: y.cpu())):
+            rates = []
+            for i in range(LINK_REPS + 1):
+                y = x + float(i)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                copy(y)
+                dt = time.perf_counter() - t0
+                if i:
+                    rates.append(mb / dt)
+            out[f"{kind}_MBps_{label}"] = statistics.median(rates)
+    return out
+
+
+def run_publish(torch, port, _build, hostcopy, new_pipe, frames, kernels, dev):
+    """The deployed node's path: PUBLISH_FRAMES BM frames at 752×480 on the
+    reference's defaults, ``Outputs.all()``, every output published through
+    ``enqueue_send`` to registered publishers; counts set to 0 just before
+    and read just after (K1 twice, K2 and K3 once a frame), every frame
+    after the first (its capture and the first pinned allocations) enqueued
+    under
+    ``set_sync_debug_mode("error")``.  Gates: frames PUBLISH_CHECKED's
+    messages equal the CPU pipeline's; in a profiler window over
+    PUBLISH_PROFILED published frames every device→host copy is ``Device
+    -> Pinned`` on a stream that ran no block matcher (K2), and no copy is
+    pageable either way.  Also: the copy time that overlaps kernels, host ms
+    a frame with and without publishing (in turns: on, off, on, off), frame
+    0's enqueue apart, and pinned and pageable MB/s.  Returns (its JSON line, launches)."""
+    from ros_gpu_stereo_processor_tpu_torch.utils.msgs import Header
+
+    outputs = port.Outputs.all()
+    pipe = new_pipe(device=dev)
+    got, seen = published(pipe, port, PUBLISH_CHECKED)
+
+    def run(publish, debug=False):
+        """Host ms of frame 0's enqueue, and a frame's after it until every
+        frame is published (``wait_all``) or done (a synchronize)."""
+        torch.cuda.synchronize()
+        t0 = t1 = time.perf_counter()
+        try:
+            for i, (left, right) in enumerate(frames):
+                if i == 1:
+                    t1 = time.perf_counter()
+                    if debug:
+                        torch.cuda.set_sync_debug_mode("error")
+                res = pipe.process(left, right, outputs, header=Header(seq=i))
+                if publish:
+                    pipe.enqueue_send(res, outputs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if publish:
+            pipe.wait_all()
+        torch.cuda.synchronize()
+        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3 / (len(frames) - 1)
+
+    _build.reset_launch_counts()
+    first_ms, main_ms = run(True, debug=True)
+    launches = {k: kern.launches for k, kern in kernels.items()}
+    log(f"publish launches over {len(frames)} frames: {launches}")
+    for k, n in launches.items():
+        if n != {"K1": 2, "K2": 1, "K3": 1}.get(k, 0) * len(frames):
+            raise AssertionError(f"publish: {k} launched {n} times")
+    if len(set(seen)) != len(seen) or len(seen) != len(outputs.flags) * len(frames):
+        raise AssertionError(f"publish: {len(seen)} messages for {len(frames)} frames")
+    cpu = new_pipe(device="cpu")
+    want, _ = published(cpu, port, PUBLISH_CHECKED)
+    for i in PUBLISH_CHECKED:
+        cpu.enqueue_send(cpu.process(*frames[i], outputs, header=Header(seq=i)), outputs)
+    cpu.wait_all()
+    for i in PUBLISH_CHECKED:
+        compare_messages({n: m for (n, s), m in got.items() if s == i},
+                         {n: m for (n, s), m in want.items() if s == i}, f"publish frame {i}")
+    log(f"publish: frames {PUBLISH_CHECKED}' messages equal the CPU pipeline's; "
+        f"no host sync while enqueuing frames 1-{len(frames) - 1}")
+
+    def step(i):
+        left, right = frames[i]
+        pipe.enqueue_send(pipe.process(left, right, outputs), outputs)
+        if i == PUBLISH_PROFILED - 1:
+            pipe.wait_all()
+
+    def read(prof, wall_ms):
+        w = copy_windows(torch, prof)
+        return w if len(w["d2h"]) >= PUBLISH_COPIES * PUBLISH_PROFILED and w["k2_streams"] \
+            else None
+
+    w = profile_window(torch, step, PUBLISH_PROFILED, read)
+    kinds = {}
+    for kind, _, _, _ in w["d2h"]:
+        kinds[kind] = kinds.get(kind, 0) + 1
+    copy_streams = {s for _, s, _, _ in w["d2h"]}
+    if set(kinds) != {"Memcpy DtoH (Device -> Pinned)"} or copy_streams & w["k2_streams"]:
+        raise AssertionError(f"publish: device→host copies {kinds} on streams "
+                             f"{sorted(copy_streams)}, the block matcher on "
+                             f"{sorted(w['k2_streams'])}")
+    if any("Pageable" in k for k in w["h2d_kinds"]):
+        raise AssertionError(f"publish: host→device copies {w['h2d_kinds']}")
+    d2h_ns = sum(b - a for _, _, a, b in w["d2h"])
+    overlap_ns = sum(max(0, min(b, y) - max(a, x))
+                     for _, _, a, b in w["d2h"] for x, y in w["kernels"])
+    log(f"publish: {kinds} on copy streams {sorted(copy_streams)}, K2 on "
+        f"{sorted(w['k2_streams'])}; host→device {w['h2d_kinds']}")
+
+    turns = {"publish": [main_ms], "no_publish": []}
+    for key in ("no_publish", "publish", "no_publish"):
+        turns[key].append(run(key == "publish")[1])
+    link = link_rates(torch, hostcopy, dev)
+    line = {"path": "publish", "frames": len(frames), "outputs": "all",
+            "ms_per_frame_publish": turns["publish"],
+            "ms_per_frame_no_publish": turns["no_publish"],
+            "first_frame_ms": first_ms,
+            "profiled_frames": PUBLISH_PROFILED,
+            "d2h_copies_per_frame": len(w["d2h"]) / PUBLISH_PROFILED,
+            "d2h_ms_per_frame": d2h_ns / 1e6 / PUBLISH_PROFILED,
+            "d2h_overlapping_kernels_ms_per_frame": overlap_ns / 1e6 / PUBLISH_PROFILED,
+            "d2h_kinds": kinds, "h2d_kinds": w["h2d_kinds"], **link,
+            "kernel_launches": launches}
+    log("publish: " + json.dumps(line))
+    return line, launches
+
+
 def run_cli(io, calib_yamls, frames, served0, work):
     """``python3 -m ros_gpu_stereo_processor_tpu_torch.cli`` in subprocesses:
     ``info``, then ``run --euroc`` on a CLI_FRAMES-frame EuRoC directory
@@ -1783,6 +2005,8 @@ def graph_vo(torch, port, timing, vo_mod, model, frames, dev):
     eagerly on its inputs and previous frame, bit for bit, every frame's
     outputs held to the end; then ``side_by_side`` (a frame: the pipeline's
     graph, the VO's graph, the pinned bundle copy and its wait)."""
+    from ros_gpu_stereo_processor_tpu_torch.utils.hostcopy import start_host_copy
+
     t0 = time.perf_counter()
     pipe = port.StereoPipeline(model, port.PipelineConfig(), device=dev)
     outs = port.Outputs.of("disparity", "rect_mono_left")
@@ -1798,8 +2022,9 @@ def graph_vo(torch, port, timing, vo_mod, model, frames, dev):
         held.append((pending, host_tree(torch, eager_vo(vo_mod, prev, o["rect_mono_left"],
                                                         o["disparity"], cam))))
     tracked = [vo.complete(p)["tracked"] for p, _ in held]
-    for i, ((cur, (buf, _), _), want) in enumerate(held):
-        same_bits(host_tree(torch, (cur, buf)), want, f"graphs VO frame {i}")
+    for i, ((cur, copy, _), want) in enumerate(held):
+        same_bits(host_tree(torch, (cur, torch.from_numpy(copy.result()[0]))), want,
+                  f"graphs VO frame {i}")
     if not all(tracked[1:]):
         raise AssertionError(f"graphs VO: tracked {tracked}")
     log(f"graphs VO: {len(frames)} frames held to the end, each dispatch equal to the eager "
@@ -1810,15 +2035,14 @@ def graph_vo(torch, port, timing, vo_mod, model, frames, dev):
         o = pipe._eager(left, right, outs, "mono8")
         prev["frame"], bundle = eager_vo(vo_mod, prev["frame"], o["rect_mono_left"],
                                          o["disparity"], cam)
-        return vo._prefetch(bundle)
+        return start_host_copy(bundle)
 
     def graph_enqueue(left, right):
         o = pipe.process(left, right, outs).outputs
         return vo.dispatch(o["rect_mono_left"], o["disparity"])[1]
 
-    def wait(fetch):
-        if fetch[1] is not None:     # the bundle copy's event (none on the CPU)
-            fetch[1].synchronize()
+    def wait(copy):
+        copy.result()                # the bundle copy's event (none on the CPU)
 
     res = side_by_side(torch, timing, frames[1:],
                        lambda l, r: wait(graph_enqueue(l, r)),
@@ -2240,7 +2464,7 @@ def main() -> int:
     )
     from ros_gpu_stereo_processor_tpu_torch.ops import features
     from ros_gpu_stereo_processor_tpu_torch.models import vo as vo_mod
-    from ros_gpu_stereo_processor_tpu_torch.utils import graphs
+    from ros_gpu_stereo_processor_tpu_torch.utils import graphs, hostcopy
     from ros_gpu_stereo_processor_tpu_torch.parallel import frontend, multihost
     from ros_gpu_stereo_processor_tpu_torch.parallel.mesh import make_mesh
     from ros_gpu_stereo_processor_tpu_torch.ops import color
@@ -2565,6 +2789,15 @@ def main() -> int:
     with phase("bilateral mesh", seconds):
         launches["bilateral mesh"] = run_bilateral_mesh(
             torch, _build, port, new_pipe, make_mesh, frames, outputs, bm_kernels, dev)
+
+    # -- the publish path: host copies of every output ------------------------
+    with phase("publish", seconds):
+        pframes = frames + [port.synthetic_stereo_pair(H, W, 48, seed=i)[:2]
+                            for i in range(len(frames), PUBLISH_FRAMES)]
+        line, launches["publish"] = run_publish(
+            torch, port, _build, hostcopy, new_pipe, pframes,
+            {"K1": k1, "K2": stereobm_kernel.KERNEL, "K3": speckle_kernel.KERNEL}, dev)
+        e2e.append(line)
 
     for p in pipes:
         p.senders.shutdown()

@@ -76,6 +76,7 @@ from ros_gpu_stereo_processor_tpu_torch.ops import _build
 from ros_gpu_stereo_processor_tpu_torch.utils.calib import StereoCameraModel, euroc_like_model
 from ros_gpu_stereo_processor_tpu_torch.utils import graphs
 from ros_gpu_stereo_processor_tpu_torch.utils.device import card_line, require_device
+from ros_gpu_stereo_processor_tpu_torch.utils.hostcopy import start_host_copy, upload
 from ros_gpu_stereo_processor_tpu_torch.utils.io import synthetic_stereo_pair
 
 BASELINE_FPS = 20.0       # BASELINE.md: > 20 fps dense disparity, 64 candidates
@@ -128,7 +129,7 @@ def _bench_config() -> PipelineConfig:
 
 
 def _on(dev, images) -> torch.Tensor:
-    return torch.from_numpy(np.stack(images)).to(dev)
+    return upload(np.stack(images), dev)
 
 
 def _checksum(out) -> torch.Tensor:
@@ -212,7 +213,8 @@ def _feeder(ing, left, right, n: int, base_stamp: float, pace_s: float = 0.0,
 
 def _e2e_metric(model, left, right, cfg, dev):
     """End-to-end streaming: native ring → pinned upload → pipeline → async
-    publish (device→host copy on a sender worker), every boundary the
+    publish (device→host copy into pinned memory started at enqueue, the
+    message built on a sender worker), every boundary the
     reference's TIMING line crosses.  Returns (batched fps + spread,
     per-frame fps + spread, d2h MB/s or None on the CPU, (p50, p95) ms,
     point-cloud bytes, latency budget)."""
@@ -229,9 +231,9 @@ def _e2e_metric(model, left, right, cfg, dev):
     cuda = dev.type == "cuda"
 
     def wire(disp):
-        """The fixed8 wire of ``disp`` and the event a sender worker waits
-        on before it copies it (None on the CPU): recorded after
-        ``disparity_fixed8``, so the copy never reads an unwritten wire."""
+        """The fixed8 wire of ``disp`` and the event its host copy waits on
+        (None on the CPU): recorded after ``disparity_fixed8``, so the copy
+        never reads an unwritten wire."""
         w = disparity_fixed8(disp)
         ev = None
         if cuda:
@@ -243,7 +245,8 @@ def _e2e_metric(model, left, right, cfg, dev):
         """Wall seconds to push ``n`` frames through and publish them: the
         feeder fills the ring, the ingest uploader stages stacked pinned
         pairs, the consumer stacks B staged pairs on the device and runs ONE
-        ``process_batch``, sender workers copy and split the batch."""
+        ``process_batch``, its host copy starts at enqueue, sender workers
+        split the batch."""
         pool = SenderPool(max_workers=3)
         t0 = time.perf_counter()
         ing = StreamingIngest(shape, capacity=2 * B, drop_on_full=False, device=dev)
@@ -325,8 +328,10 @@ def _e2e_metric(model, left, right, cfg, dev):
     budget["wire"] = "fixed8_u8"
     budget["wire_bytes_frame"] = int(np.prod(shape))
 
-    # the link's device→host rate: a fresh tensor each time, after a
-    # synchronize, so the copy alone is on the clock (none on the CPU)
+    # the link's device→host rate as the node copies: the publish path's
+    # pinned copy on the copy stream (utils/hostcopy.py); a fresh tensor
+    # each time, after a synchronize, so the copy alone is on the clock
+    # (none on the CPU)
     d2h = None
     if cuda:
         d2h_runs = []
@@ -334,7 +339,7 @@ def _e2e_metric(model, left, right, cfg, dev):
             x = pipe.process(left, right, outputs).outputs["disparity"] + float(i)
             _sync(dev)
             t0 = time.perf_counter()
-            x.cpu()
+            start_host_copy(x).result()
             d2h_runs.append(x.numel() * x.element_size() / (time.perf_counter() - t0) / 1e6)
         d2h, _ = _med_spread(d2h_runs)
 
@@ -573,7 +578,8 @@ def _stage_breakdown(model, left, right, cfg, dev):
     eagerly, op by op, as the reference times its stages; each window of
     ``BENCH_STAGE_ITERS`` steps closed by a synchronize; every step's
     outputs reduced to an on-device checksum.  ``upload`` copies both
-    host frames from pageable memory, as ``StereoPipeline.process`` does;
+    host frames through pinned staging (a host copy into a pinned tensor,
+    then the device copy), as ``StereoPipeline.process`` does;
     ``upload_pinned`` (card only) one (2, H, W) pinned buffer, as the
     ingest uploader does.  Returns (ms by stage, spread by stage)."""
     iters = _env("BENCH_STAGE_ITERS", 10)
@@ -689,7 +695,7 @@ def main(argv=None) -> int:
     def stages():
         record["stage_ms"], record["stage_ms_spread"] = _stage_breakdown(
             model, left, right, cfg, dev)
-        record["stage_upload_memory"] = {k: "pinned" if k.endswith("pinned") else "pageable"
+        record["stage_upload_memory"] = {k: "pinned" if k.endswith("pinned") else "staged"
                                          for k in record["stage_ms"] if k.startswith("upload")}
 
     def sgm():

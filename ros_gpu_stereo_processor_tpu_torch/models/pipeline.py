@@ -76,6 +76,7 @@ from ros_gpu_stereo_processor_tpu_torch.parallel import frontend as par
 from ros_gpu_stereo_processor_tpu_torch.parallel.mesh import Mesh
 from ros_gpu_stereo_processor_tpu_torch.utils import graphs
 from ros_gpu_stereo_processor_tpu_torch.utils import msgs as msgs_mod
+from ros_gpu_stereo_processor_tpu_torch.utils.hostcopy import start_host_copy, upload
 from ros_gpu_stereo_processor_tpu_torch.utils.calib import StereoCameraModel
 from ros_gpu_stereo_processor_tpu_torch.utils.device import require_device
 from ros_gpu_stereo_processor_tpu_torch.utils.msgs import (
@@ -276,13 +277,6 @@ def _mesh_disparity(rect_mono, bm: StereoBMConfig, speckle: SpeckleConfig,
     return mesh.gather(disp), mesh.gather(valid)
 
 
-def _on(img, device) -> torch.Tensor:
-    """An image (tensor or numpy array) as a tensor on ``device``."""
-    if isinstance(img, torch.Tensor):
-        return img.to(device)
-    return torch.from_numpy(np.ascontiguousarray(img)).to(device)
-
-
 @dataclasses.dataclass
 class FrameResult:
     """Device-tensor outputs of one frame step, with the CUDA event recorded
@@ -294,13 +288,19 @@ class FrameResult:
     event: Optional[torch.cuda.Event] = None
     band_events: Tuple[torch.cuda.Event, ...] = ()
 
+    @property
+    def events(self) -> Tuple[torch.cuda.Event, ...]:
+        """The frame's events: every device it used."""
+        return ((self.event,) if self.event is not None else ()) + self.band_events
+
     def fetch(self) -> Dict[str, np.ndarray]:
-        """Wait for the frame and return its outputs as numpy arrays."""
-        self.block_until_ready()
-        return {k: msgs_mod.to_host(v) for k, v in self.outputs.items()}
+        """The outputs as numpy arrays: every output's host copy starts at
+        once after the frame's events (utils/hostcopy.py), then one wait."""
+        host = start_host_copy(tuple(self.outputs.values()), self.events).result()
+        return dict(zip(self.outputs, host))
 
     def block_until_ready(self) -> "FrameResult":
-        for e in ((self.event,) if self.event is not None else ()) + self.band_events:
+        for e in self.events:
             e.synchronize()
         return self
 
@@ -433,7 +433,7 @@ class StereoPipeline:
         logger.info("reconfigured: %s %s %s", cfg.stereobm, cfg.speckle, cfg.bilateral)
 
     def _to_device(self, img) -> torch.Tensor:
-        return _on(img, self.device)
+        return upload(img, self.device)
 
     def _eager(self, left, right, outputs: Outputs, encoding: str):
         """The frame step run op by op (no graph): the reference the
@@ -489,7 +489,7 @@ class StereoPipeline:
             fn = graphs.Captured(run, self.device, name=name)
         else:
             def fn(left, right, dev=self.device):
-                return run(_on(left, dev), _on(right, dev))
+                return run(upload(left, dev), upload(right, dev))
         self._variants[key] = fn
         return fn
 
@@ -568,7 +568,11 @@ class StereoPipeline:
     def enqueue_send(self, res: FrameResult, outputs: Outputs) -> None:
         """Register async message builds for every requested output —
         the role of enqueueSendImage/Disparity/Points
-        (src/GPUStereoProcessor.cpp:210-234)."""
+        (src/GPUStereoProcessor.cpp:210-234).  Every output's device→host
+        copy starts here, in one host copy of the frame (one stream switch
+        and one event for all of them, utils/hostcopy.py) ordered after the
+        frame's events and the disparity's wire codec; a sender worker
+        builds and publishes each message once that copy has landed."""
         h = res.header
         cfg = self.config.stereobm
         H, W = self.height, self.width
@@ -576,41 +580,36 @@ class StereoPipeline:
         def img_builder(enc):
             return lambda a: ImageMessage(h, a.shape[0], a.shape[1], enc, a)
 
-        def send(name, arrays, build, ready=res.event):
-            self.senders.enqueue(name, arrays, build, ready=ready)
+        def pc_builder(xyz, rgb=None):
+            return PointCloud2Message(h, xyz.shape[0], xyz.shape[1], xyz, rgb)
 
+        sends = []      # (output name, its tensors, message builder)
+        ready = res.event
         for name in outputs.flags:
             if name.startswith(("mono_", "rect_mono_")):
-                send(name, res.outputs[name], img_builder("mono8"))
-            elif name.startswith(("color_", "rect_color_")):
-                send(name, res.outputs[name], img_builder("rgb8"))
+                sends.append((name, (res.outputs[name],), img_builder("mono8")))
+            elif name.startswith(("color_", "rect_color_")) or name == "disparity_vis":
+                sends.append((name, (res.outputs[name],), img_builder("rgb8")))
             elif name == "disparity":
                 wire = self._wire_disparity(res.outputs["disparity"])
-                ready = res.event
                 if ready is not None:
                     # the wire codec is enqueued after the frame's event
                     ready = torch.cuda.Event()
                     ready.record()
-                send(
-                    name, wire,
-                    lambda a: make_disparity_message(
-                        h, a, cfg, self.fx, self.baseline, (H, W)
-                    ),
-                    ready,
-                )
-            elif name == "disparity_vis":
-                send(name, res.outputs[name], img_builder("rgb8"))
+                sends.append((name, (wire,), lambda a: make_disparity_message(
+                    h, a, cfg, self.fx, self.baseline, (H, W))))
             elif name == "pointcloud":
                 arrays = (res.outputs["pointcloud_xyz"],)
                 if "pointcloud_rgb" in res.outputs:
                     arrays = arrays + (res.outputs["pointcloud_rgb"],)
-
-                def pc_builder(xyz, rgb=None):
-                    return PointCloud2Message(
-                        h, xyz.shape[0], xyz.shape[1], xyz, rgb
-                    )
-
-                send(name, arrays, pc_builder)
+                sends.append((name, arrays, pc_builder))
+        # after every device the frame used (a mesh over several cards)
+        copy = start_host_copy([t for _, ts, _ in sends for t in ts],
+                               (ready,) + res.band_events)
+        start = 0
+        for name, ts, build in sends:
+            self.senders.enqueue_copy(name, copy.part(start, start + len(ts)), build)
+            start += len(ts)
 
     def _wire_disparity(self, disp: torch.Tensor) -> torch.Tensor:
         """Quantize disparity on the device per ``config.disparity_wire``

@@ -17,8 +17,9 @@ a frame runs on the VO's device; on a CUDA device ``dispatch`` replays the
 step as a CUDA graph (``_vo_first`` on the first frame, ``_vo_core`` after,
 each with ``_pack_host_bundle``, captured once per camera and image shape
 as the JAX package jits them; utils/graphs.py), copies the frame's packed
-host bundle into pinned host memory without blocking and records an event
-that ``complete`` waits on.
+host bundle into pinned host memory on the copy stream without blocking
+(utils/hostcopy.py, as the pipeline's publish copies) and ``complete``
+waits on that copy's event.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from ros_gpu_stereo_processor_tpu_torch.ops import features as feat_ops
 from ros_gpu_stereo_processor_tpu_torch.utils import graphs, lie
 from ros_gpu_stereo_processor_tpu_torch.utils.device import require_device
 from ros_gpu_stereo_processor_tpu_torch.utils.division import div_const, rdiv
+from ros_gpu_stereo_processor_tpu_torch.utils.hostcopy import start_host_copy
 
 
 class TrackedFrame(NamedTuple):
@@ -360,19 +362,8 @@ class StereoVisualOdometry:
         else:
             cur, bundle = self._step(False)(rect_left, disparity)
         st.prev = cur
-        return (cur, self._prefetch(bundle), has_motion)
-
-    def _prefetch(self, bundle: torch.Tensor):
-        """Start the device→host copy of this frame's packed bundle at
-        dispatch: one non-blocking copy into pinned host memory and an
-        event after it.  Returns (host tensor, event or None)."""
-        if bundle.device.type != "cuda":
-            return bundle, None
-        host = torch.empty(bundle.shape, dtype=bundle.dtype, pin_memory=True)
-        host.copy_(bundle, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
-        return host, ev
+        # the bundle's host copy starts now (pinned, on the copy stream)
+        return (cur, start_host_copy(bundle), has_motion)
 
     def fetch_frame_host(self, cur: TrackedFrame) -> dict:
         """Host copies of the per-frame sparse state the map logic needs on
@@ -381,19 +372,17 @@ class StereoVisualOdometry:
         bundle.  :meth:`complete` already carries them as
         ``info["frame_host"]``; this is for a frame whose bundle is gone."""
         bundle = _pack_host_bundle(cur.kp, cur.pts_cam, cur.pts_valid)
-        return _unpack_host_bundle(bundle.cpu().numpy(), False)[0]
+        return _unpack_host_bundle(start_host_copy(bundle).result()[0], False)[0]
 
     def complete(self, pending) -> dict:
         """Wait for a dispatched frame's bundle and update the host pose.
         The bundle carries the motion solve AND the keyframe host copies, so
         ``info["frame_host"]`` is always available."""
-        cur, (buf, ev), has_motion = pending
+        cur, copy, has_motion = pending
         st = self.state
         info = {"n_matches": 0, "rms_px": float("nan"), "tracked": False,
                 "lost": False, "frame": cur}
-        if ev is not None:
-            ev.synchronize()
-        host, motion = _unpack_host_bundle(buf.numpy(), has_motion)
+        host, motion = _unpack_host_bundle(copy.result()[0], has_motion)
         info["frame_host"] = host
         if motion is not None:
             n, R_rel, t_rel, rms_h = motion

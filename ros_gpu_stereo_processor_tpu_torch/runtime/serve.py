@@ -88,8 +88,8 @@ class ServeDaemon:
         self._reconf_mtime = 0.0
         self._idle = 0.0
         self.poll_interval = 0.2
-        # sender workers copy outputs to the host and write them while the
-        # consumer keeps dispatching
+        # sender workers wait for the outputs' host copies and write them
+        # while the consumer keeps dispatching
         self._senders = SenderPool(max_workers=3)
         self._inflight: list = []
         # (publish time, latency ms): fps over the window the deque holds, so
@@ -211,9 +211,9 @@ class ServeDaemon:
         return new
 
     def _publish(self, res, stamp: float, t_dispatch: float) -> None:
-        """Enqueue one frame's outputs on the sender pool: a worker waits for
-        the frame, copies its tensors to the host and writes the files off
-        the consumer thread."""
+        """Enqueue one frame's outputs on the sender pool: their host copies
+        start here (pinned, on the copy stream), and a worker waits for them
+        and writes the files off the consumer thread."""
         from ros_gpu_stereo_processor_tpu_torch.utils.io import write_image
 
         save = self.save_outputs

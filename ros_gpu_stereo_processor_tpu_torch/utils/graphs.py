@@ -23,8 +23,9 @@ window shape, and the bench.
     graph inside the capture would invalidate it).  Two threads never
     capture at once.
   * Every later call copies its inputs into the graph's static input
-    buffers (a numpy array straight from host memory, a tensor device to
-    device), replays the graph and copies the outputs out.
+    buffers (a host input through a pinned staging copy made by the host
+    before the call returns, utils/hostcopy.py; a tensor device to device),
+    replays the graph and copies the outputs out.
   * Outputs never alias a later replay, as JAX returns fresh buffers on
     every call: inside the graph every output is copied into one byte
     arena, and each replay clones the arena (one device copy) and returns
@@ -60,6 +61,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ros_gpu_stereo_processor_tpu_torch.ops import _build
+from ros_gpu_stereo_processor_tpu_torch.utils.hostcopy import staged
 
 _ALIGN = 64   # bytes: every output's offset in the arena
 # one capture at a time in the process: a capture's start synchronizes the
@@ -142,7 +144,7 @@ class _Graph:
 
     def _load(self, inputs: List[torch.Tensor]) -> None:
         for buf, x in zip(self.inputs, inputs):
-            buf.copy_(x, non_blocking=True)
+            buf.copy_(staged(x) if x.device.type == "cpu" else x, non_blocking=True)
 
     def _call(self):
         return self.fn(*pytree.tree_unflatten(self.inputs, self.spec))

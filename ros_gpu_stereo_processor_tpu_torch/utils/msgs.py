@@ -3,11 +3,13 @@
 The port of ``ros_gpu_stereo_processor_tpu/utils/msgs.py``.  The reference
 builds ROS messages inside CUDA stream host-callbacks
 (src/GpuSenderIfc.cpp:13-26), overlapping publish I/O with later compute.
-Here the frame step enqueues its work and returns device tensors; a
-:class:`SenderPool` worker waits for the frame's CUDA event, copies the
-tensors to the host, builds the message and calls the publisher registered
-for it.  A ``None`` publisher is allowed and skips publishing — the
-reference's NULL-publisher test trick (test/UTest.cpp:304).
+Here the frame step enqueues its work and returns device tensors;
+:meth:`SenderPool.enqueue` starts their device→host copies into pinned
+memory on a copy stream at once, on the enqueuing thread
+(utils/hostcopy.py), and a worker waits for the copies' event, builds the
+message and calls the publisher registered for it.  A ``None`` publisher is
+allowed and skips publishing — the reference's NULL-publisher test trick
+(test/UTest.cpp:304).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from ros_gpu_stereo_processor_tpu_torch.config import StereoBMConfig
 from ros_gpu_stereo_processor_tpu_torch.ops import color as color_ops
+from ros_gpu_stereo_processor_tpu_torch.utils.hostcopy import Events, HostCopy, start_host_copy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,22 +161,16 @@ def disparity_fixed8_decode(wire: np.ndarray, min_disparity: int = 0,
     return np.where(w == 255, np.float32(fill_value), d)
 
 
-def to_host(x) -> np.ndarray:
-    """A tensor (or array) as a host numpy array."""
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
-
-
 PublishFn = Callable[[Any], None]
 
 
 class SenderPool:
     """Async output delivery: per-output device tensors → messages → publishers.
 
-    ``enqueue(name, tensors, build_fn, ready)`` returns immediately; a worker
-    waits on ``ready`` (the frame's CUDA event, or None), copies the tensors
-    to the host, builds the message and calls the publisher registered for
+    ``enqueue(name, tensors, build_fn, ready)`` starts the tensors' host
+    copies after ``ready`` (the frame's CUDA event, a tuple of events, or
+    None: the caller's current stream) and returns; a worker waits for the
+    copies, builds the message and calls the publisher registered for
     ``name`` (if any).  ``wait_all()`` ≙ the reference's
     ``waitForAllStreams`` + sender drain (src/GPUStereoProcessor.cpp:348-354).
     """
@@ -190,17 +187,20 @@ class SenderPool:
             self._publishers[name] = publish
 
     def enqueue(self, name: str, arrays, build_fn: Callable[..., Any],
-                ready: Optional[torch.cuda.Event] = None,
-                ) -> "concurrent.futures.Future":
-        """arrays: tensor or tuple of them; build_fn(*host_arrays) → msg."""
+                ready: Events = None) -> "concurrent.futures.Future":
+        """arrays: tensor or tuple of them; build_fn(*host_arrays) → msg.
+        The device→host copies start here, on the calling thread, as the
+        JAX pool's ``copy_to_host_async`` does."""
+        return self.enqueue_copy(name, start_host_copy(arrays, ready), build_fn)
+
+    def enqueue_copy(self, name: str, copy: HostCopy,
+                     build_fn: Callable[..., Any]) -> "concurrent.futures.Future":
+        """:meth:`enqueue` of host copies already started: a worker waits
+        for ``copy``, builds ``build_fn(*copy.result())`` and publishes it."""
         self._sent[name] = False
-        arrs = arrays if isinstance(arrays, tuple) else (arrays,)
 
         def work():
-            if ready is not None:
-                ready.synchronize()
-            host = tuple(to_host(a) for a in arrs)
-            msg = build_fn(*host)
+            msg = build_fn(*copy.result())
             pub = self._publishers.get(name)
             if pub is not None:
                 pub(msg)
@@ -210,7 +210,17 @@ class SenderPool:
         fut = self._pool.submit(work)
         with self._lock:
             self._inflight.append(fut)
+        fut.add_done_callback(self._settled)
         return fut
+
+    def _settled(self, fut) -> None:
+        """Forget a send that succeeded: its message, and the pinned host
+        memory under it, then lives only as long as its publisher or the
+        caller keeps it.  A failed send stays for ``wait_all`` to raise."""
+        if fut.exception() is None:
+            with self._lock:
+                if fut in self._inflight:
+                    self._inflight.remove(fut)
 
     def was_data_sent(self, name: str) -> bool:
         """The reference's wasDataSent() test hook (GpuSenderIfc.h:20)."""

@@ -452,6 +452,6 @@ def test_vo_dispatch_captured_equals_eager(dev):
         held.append((pending, want))
         vo.complete(pending)
     assert vo.state.n_frames == len(lefts)
-    for (cur, (buf, _), _), (frame, bundle) in held:
+    for (cur, copy, _), (frame, bundle) in held:
         _same(cur, frame)
-        assert torch.equal(buf, bundle)
+        assert torch.equal(torch.from_numpy(copy.result()[0]), bundle)
