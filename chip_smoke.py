@@ -23,9 +23,12 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      device time on a mesh band's 134×752 launch), K3 speckle labels
      (exact at 1, 2, one short of the rounds the frame needs, those rounds
      and 64), and the SGM kernels K4 cost + down path (the cost stage's and
-     the down walk's device time apart, and the walk's ns per step), K5 path
-     aggregation (the frame's three calls, each also timed apart with its ns
-     per step) and K6 winner-take-all at 64 and 128
+     the down walk's device time apart, and the walk's ns per step; and its
+     cost stage alone, the 2-path route's, against K4's cost volume), K5
+     path aggregation (the frame's three calls, each also timed apart with
+     its ns per step), DG the diagonal pair walk (the 8-path frame's two
+     calls, each timed apart with its ns per step) and K6 winner-take-all
+     over 2, 4 and 8 paths at 64 and 128
      disparities with quantised storage and at 64 with float32 storage (P1
      7.5, P2 93.25), all exact; K7 max-propagation on one band of the
      4-band split (120×752, its field and masks built by the row-sharded
@@ -40,7 +43,11 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
          launching K1 twice, K2 and K3 once; 3 compared with the CPU run;
        * SGM (4 paths, 128 disparities, block 15, texture 10): 11 frames,
          each launching K1 twice, K3, K4 and K6 once and K5 three times, and
-         not K2; 2 compared with the CPU run;
+         not K2, DG or K4's cost stage alone; 2 compared with the CPU run;
+       * SGM over 8 and over 2 paths (the same config and frames): each frame
+         K4 once, K5 three times and DG twice (8 paths), or K4's cost stage
+         alone once and K5 twice (2 paths), and K1 twice, K3 and K6 once; 2
+         compared with the CPU run;
        * the row-band mesh, ``make_mesh(4, devices=["cuda:0"] * 4)``, default
          BM config: 6 frames, each launching K1 and K2 once per band per
          call (8 and 4), K7 once per band (4), the band label rounds at
@@ -71,9 +78,10 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      variant beside its eager step in this call: first K3's cooperative
      launch and ``torch.linalg.solve_ex`` captured alone, equal to their
      eager calls; then BM at ``Outputs.all()``, BM ``lr_check``, 4-path
-     SGM at 128 disparities, 8-path SGM, Bayer and the bilateral filter
-     (iters 1), 9 distinct frames each, all held to the end and each equal
-     to the eager step bit for bit; ``process_batch`` of 8 frames (the
+     SGM at 128 disparities, 8-path SGM at 64 and 128, 2-path SGM at 128,
+     Bayer and the bilateral filter (iters 1), 9 distinct frames each, all
+     held to the end and each equal to the eager step bit for bit (the 8-
+     and 2-path rows' first frames also to the CPU run); ``process_batch`` of 8 frames (the
      first call and a replay); the VO step over the planar sequence (each
      dispatch against ``_vo_first``/``_vo_core`` run eagerly); the bench's
      SLAM-compute chain and compute batch.  For each: ``timed`` median and
@@ -196,7 +204,7 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      ros_gpu_stereo_processor_tpu_torch.bench``) in a subprocess at the JAX
      bench's defaults: exit 0, a last line of at most 1,800 characters whose
      every metric is finite and > 0, no ``*_error`` key, K1–K6 launched
-     (counts set to 0 at the bench's start) and K7 and BL not; then, in this
+     (counts set to 0 at the bench's start) and K7, BL and DG not; then, in this
      process, the bench's timed compute window and one SGM and SLAM-compute
      unit of work under ``torch.cuda.set_sync_debug_mode("error")``: no host
      sync inside them;
@@ -300,6 +308,9 @@ SOURCES = {   # key: (C entry point, CUDA source, TPU kernel it replaces)
     # the band-local label rounds of the mesh speckle filter: no TPU kernel,
     # they replace the JAX band's jnp scans
     "BL": ("speckle_band_labels", "csrc/speckle.cu", "parallel/frontend.py:585"),
+    # the diagonal pair walk of 8-path SGM: no TPU kernel, it replaces the
+    # JAX pipeline's jnp diagonal scans
+    "DG": ("sgm_aggregate_diagonal", "csrc/sgm.cu", "ops/sgm.py:75"),
 }
 
 
@@ -541,38 +552,47 @@ def k5_calls(down, lr):
 
 
 def check_sgm_kernels(torch, sgm_kernel, stereobm, rl, rect, cfg, p1, p2):
-    """K4, K5 (the frame's three calls) and K6 against their plain versions
-    on the card, exact; then their times and bounds (``rl``: the port's
-    utils/roofline.py)."""
+    """K4 (and its cost stage alone, the 2-path route's), K5 (the frame's
+    three calls), DG (the 8-path frame's two calls) and K6 over 2, 4 and 8
+    paths against their plain versions on the card, exact; then their times
+    and bounds (``rl``: the port's utils/roofline.py)."""
     lf = stereobm.prefilter(rect[0], cfg)
     rf = stereobm.prefilter(rect[1], cfg)
     cdt, edt = sgm_kernel.storage_dtypes(cfg, p1, p2, True)
     cost, down = sgm_kernel.cost_and_down(lf, rf, cfg, p1, p2, cdt, edt)
     cost_p, down_p = sgm_kernel.cost_and_down_plain(lf, rf, cfg, p1, p2, cdt, edt)
+    alone = sgm_kernel.cost_volume(lf, rf, cfg, p2, cdt)
     torch.cuda.synchronize()
     require_equal("K4 cost", cost, cost_p)
     require_equal("K4 exc_down", down, down_p)
-    err = {"K4": max(max_abs(cost, cost_p), max_abs(down, down_p)), "K5": 0.0, "K6": 0.0}
+    require_equal("K4 cost stage alone", alone, cost_p)
+    err = {"K4": max(max_abs(cost, cost_p), max_abs(down, down_p), max_abs(alone, cost_p)),
+           "K5": 0.0, "K6": 0.0, "DG": 0.0}
 
-    def aggregate(name, exc_in, vertical, reverse):
-        args = (cost, exc_in, p1, p2, vertical, reverse, edt)
-        got = sgm_kernel.aggregate(*args)
-        want = sgm_kernel.aggregate_plain(*args)
+    def held(key, name, fn, plain, *args):
+        got, want = fn(*args), plain(*args)
         torch.cuda.synchronize()
-        require_equal(f"K5 {name}", got, want)
-        err["K5"] = max(err["K5"], max_abs(got, want))
+        require_equal(f"{key} {name}", got, want)
+        err[key] = max(err[key], max_abs(got, want))
         return got
 
-    ev = aggregate("up + down", down, True, True)
-    lr = aggregate("left-right", None, False, False)
-    eh = aggregate("right-left + left-right", lr, False, True)
+    ev = held("K5", "up + down", sgm_kernel.aggregate, sgm_kernel.aggregate_plain,
+              cost, down, p1, p2, True, True, edt)
+    lr = held("K5", "left-right", sgm_kernel.aggregate, sgm_kernel.aggregate_plain,
+              cost, None, p1, p2, False, False, edt)
+    eh = held("K5", "right-left + left-right", sgm_kernel.aggregate,
+              sgm_kernel.aggregate_plain, cost, lr, p1, p2, False, True, edt)
+    diag = [held("DG", f"dx {dx:+d}", sgm_kernel.aggregate_diagonal,
+                 sgm_kernel.aggregate_diagonal_plain, cost, p1, p2, dx, edt) for dx in (1, -1)]
+    pairs = {2: (eh,), 4: (ev, eh), 8: (ev, eh, *diag)}
     for c in (cfg, cfg.replace(refine_disparity=True, uniqueness_ratio=10)):
-        got = sgm_kernel.wta(cost, ev, eh, c)
-        want = sgm_kernel.wta_plain(cost, ev, eh, c)
-        torch.cuda.synchronize()
-        for a, b, nm in zip(got, want, ("disp_raw", "best_cost", "excl")):
-            require_equal(f"K6 {nm} refine={c.refine_disparity}", a, b)
-            err["K6"] = max(err["K6"], max_abs(a, b))
+        for n, pv in pairs.items():
+            got = sgm_kernel.wta(cost, pv, c)
+            want = sgm_kernel.wta_plain(cost, pv, c)
+            torch.cuda.synchronize()
+            for a, b, nm in zip(got, want, ("disp_raw", "best_cost", "excl")):
+                require_equal(f"K6 {n} paths {nm} refine={c.refine_disparity}", a, b)
+                err["K6"] = max(err["K6"], max_abs(a, b))
 
     def k5(fn):
         def run():
@@ -581,20 +601,31 @@ def check_sgm_kernels(torch, sgm_kernel, stereobm, rl, rect, cfg, p1, p2):
             return ev, fn(cost, lr, p1, p2, False, True, edt)
         return run
 
-    # per call; K5's is the mean of the frame's 3 calls
-    work = rl.sgm_fused_model(H, W, cfg.num_disparities, cost.element_size(),
-                              down.element_size())
+    def dg(fn):
+        return lambda: [fn(cost, p1, p2, dx, edt) for dx in (1, -1)]
+
+    # per call; K5's is the mean of the frame's 3 calls, DG's of its 2
+    work = {n: rl.sgm_fused_model(H, W, cfg.num_disparities, cost.element_size(),
+                                  down.element_size(), paths=n) for n in pairs}
     times = {
         "K4": timed(torch, lambda: sgm_kernel.cost_and_down(lf, rf, cfg, p1, p2, cdt, edt),
                     lambda: sgm_kernel.cost_and_down_plain(lf, rf, cfg, p1, p2, cdt, edt), 2,
                     split=("sgm_cost", "sgm_walk")),
         "K5": timed(torch, k5(sgm_kernel.aggregate), k5(sgm_kernel.aggregate_plain), 1,
                     calls=3),
-        "K6": timed(torch, lambda: sgm_kernel.wta(cost, ev, eh, cfg),
-                    lambda: sgm_kernel.wta_plain(cost, ev, eh, cfg), 1),
+        "DG": timed(torch, dg(sgm_kernel.aggregate_diagonal),
+                    dg(sgm_kernel.aggregate_diagonal_plain), 1, calls=2),
+        "K6": timed(torch, lambda: sgm_kernel.wta(cost, pairs[4], cfg),
+                    lambda: sgm_kernel.wta_plain(cost, pairs[4], cfg), 1),
     }
-    # each walk's device time and time per step (one pixel of its lines)
+    # each walk's device time and time per step (one pixel of its lines; a
+    # DG call walks its longest lines, min(H, W) pixels, down and back up)
     times["K4"]["down_walk_step_ns"] = times["K4"]["sgm_walk_device_ms"] * 1e6 / H
+    times["K4"]["cost_only"] = timed(
+        torch, lambda: sgm_kernel.cost_volume(lf, rf, cfg, p2, cdt),
+        lambda: sgm_kernel.cost_volume_plain(lf, rf, cfg, p2, cdt), 1)
+    times["K4"]["cost_only"]["bound_ms"], times["K4"]["cost_only"]["bound_by"] = \
+        rl.model_bound(work[2]["K4 cost"])
     times["K5"]["calls"] = {}
     for name, exc_in, vertical, reverse in k5_calls(down, lr):
         args = (cost, exc_in, p1, p2, vertical, reverse, edt)
@@ -602,11 +633,24 @@ def check_sgm_kernels(torch, sgm_kernel, stereobm, rl, rect, cfg, p1, p2):
                             launches=1)
         times["K5"]["calls"][name] = {"device_ms": ms,
                                       "step_ns": ms * 1e6 / (H if vertical else W)}
+    times["DG"]["calls"] = {}
+    for dx in (1, -1):
+        ms, _ = device_cost(torch, lambda: sgm_kernel.aggregate_diagonal(cost, p1, p2, dx, edt),
+                            KERNEL_REPS, launches=1)
+        times["DG"]["calls"][f"dx {dx:+d}"] = {"device_ms": ms,
+                                               "step_ns": ms * 1e6 / (2 * min(H, W))}
+    times["K6"]["paths"] = {}
+    for n, pv in pairs.items():
+        ms, _ = device_cost(torch, lambda: sgm_kernel.wta(cost, pv, cfg), KERNEL_REPS,
+                            launches=1)
+        b_ms, by = rl.model_bound(work[n]["K6"])
+        times["K6"]["paths"][n] = {"device_ms": ms, "bound_ms": b_ms, "bound_by": by}
     out = {}
-    for k in ("K4", "K5", "K6"):
-        b_ms, by = rl.bound(work[k]["bytes"], work[k]["ops"])
+    for k in ("K4", "K5", "DG", "K6"):
+        b_ms, by = rl.model_bound(work[8][k])
         out[k] = {"max_abs_err": err[k], **times[k], "bound_ms": b_ms, "bound_by": by,
                   "library_ms": None}
+    out["K6"]["bound_ms"], out["K6"]["bound_by"] = rl.model_bound(work[4]["K6"])
     return out
 
 
@@ -1270,7 +1314,8 @@ def run_hard(torch, port, _build, features, timing, calib, bench, hard, rendered
     torch.cuda.synchronize()
     launches = {k: kern.launches for k, kern in kernels.items()}
     log(f"hard launches over {n} frames: {launches}")
-    want = {"K1": n, "K2": 0, "K3": n, "K4": n, "K5": 3 * n, "K6": n, "K7": 0, "BL": 0}
+    want = {"K1": n, "K2": 0, "K3": n, "K4": n, "K4 cost": 0, "K5": 3 * n, "K6": n, "K7": 0,
+            "BL": 0, "DG": 0}
     for k, w in want.items():
         if launches[k] != w:
             raise AssertionError(f"hard: {k} launched {launches[k]} times, not {w}")
@@ -1916,13 +1961,15 @@ def report(label, res, host_max, graph_launches):
 
 
 def graph_pipeline(torch, timing, pipe, frames, outputs, label, encoding="mono8",
-                   profiled=GRAPH_PROFILED):
+                   profiled=GRAPH_PROFILED, cpu=None):
     """One single-device frame path of the graphs phase: every frame
     enqueued (its graph; frame 0 runs eagerly and captures) with its
     FrameResult held (more than ``max_in_flight`` + 2), then each frame's
     eager step timed and each held result fetched and held to it, bit for
-    bit; one graph; then ``timed_process`` over the frames after frame 0 and
-    ``side_by_side`` (with those and the eager times)."""
+    bit, and the first ``len(cpu)`` held to ``cpu`` (the CPU run's outputs of
+    those frames) as ``compare_outputs`` holds a frame; one graph; then
+    ``timed_process`` over the frames after frame 0 and ``side_by_side``
+    (with those and the eager times)."""
     t0 = time.perf_counter()
     if len(frames) <= pipe.config.max_in_flight + 2:
         raise ValueError("hold more frames than max_in_flight + 2")
@@ -1936,12 +1983,16 @@ def graph_pipeline(torch, timing, pipe, frames, outputs, label, encoding="mono8"
         want, t = timing.timed(lambda: pipe._eager(left, right, outputs, encoding),
                                pipe.device)
         ms["eager"].append(t)
-        same_bits(res.fetch(), {k: v.cpu().numpy() for k, v in want.items()},
+        got = res.fetch()
+        same_bits(got, {k: v.cpu().numpy() for k, v in want.items()},
                   f"graphs {label} frame {i}")
+        if i < len(cpu or ()):
+            compare_outputs(got, cpu[i], f"graphs {label} frame {i} against the CPU run")
     if pipe._get_variant(outputs, encoding).graph_count() != 1:
         raise AssertionError(f"graphs {label}: more than one graph")
     log(f"graphs {label}: {len(frames)} frames held to the end, each equal to the eager "
-        f"step bit for bit; the first (eager run and capture) {first_ms:.1f} ms")
+        f"step bit for bit ({len(cpu or ())} to the CPU run); the first (eager run and "
+        f"capture) {first_ms:.1f} ms")
     ms = {"captured": [pipe.timed_process(left, right, outputs, encoding)[1]
                        for left, right in frames[1:]], "eager": ms["eager"][1:]}
     res = side_by_side(
@@ -1952,7 +2003,7 @@ def graph_pipeline(torch, timing, pipe, frames, outputs, label, encoding="mono8"
         lambda l, r: pipe._eager(l, r, outputs, encoding), pipe.device,
         timed_ms=ms, profiled=profiled)
     return report(label, {"frames": len(frames), "bit_exact": True,
-                          "first_frame_ms": first_ms,
+                          "cpu_compared": len(cpu or ()), "first_frame_ms": first_ms,
                           "seconds": time.perf_counter() - t0, **res},
                   GRAPH_HOST_CALLS_MAX, 1)
 
@@ -2084,14 +2135,17 @@ def graph_bench_chains(torch, port, timing, bench, dev):
 
 
 def run_graphs(torch, port, timing, bench, graphs, speckle_kernel, vo_mod, calib, arrays,
-               frames, sframes, slam_frames, dev):
+               frames, sframes, slam_frames, cpu_sgm, dev):
     """The compiled dispatch (utils/graphs.py) on the card, each captured
     variant beside its eager step in this call.  First the cooperative
     speckle launch (K3's memset and ``cudaLaunchCooperativeKernel``) and
     ``torch.linalg.solve_ex`` (the PnP's 6×6 solve) captured alone and
     replayed, equal to their eager calls; then, over GRAPH_FRAMES distinct
     frames each: BM at ``Outputs.all()``, BM with ``lr_check``, 4-path SGM
-    at 128 disparities, 8-path SGM, Bayer, the bilateral filter at iters 1;
+    at 128 disparities, 8-path SGM at 64 and 128, 2-path SGM at 128 (those
+    three also equal to the CPU run on their compared frames: ``cpu_sgm``,
+    the e2e phases' CPU outputs by path, and one CPU frame of the 8-path
+    row at 64), Bayer, the bilateral filter at iters 1;
     ``process_batch`` of GRAPH_BATCH frames; the VO step over the planar
     sequence; the bench's SLAM-compute chain and compute batch.  Each path:
     outputs equal to the eager step bit for bit, every result held to the
@@ -2125,23 +2179,32 @@ def run_graphs(torch, port, timing, bench, graphs, speckle_kernel, vo_mod, calib
     def pipe(**cfg):
         return port.StereoPipeline.from_arrays(*arrays, port.PipelineConfig(**cfg), device=dev)
 
+    def sgm(**kw):
+        return {"stereobm": bm(algorithm="sgm", **kw)}
+
     outputs = port.Outputs.all()
     bm = port.StereoBMConfig
     lines = []
-    for label, cfg, fr, enc, profiled in (
-            ("BM", {}, frames, "mono8", GRAPH_PROFILED),
-            ("BM lr_check", {"stereobm": bm(lr_check=True)}, frames, "mono8", GRAPH_PROFILED),
-            ("SGM 4 paths 128d", {"stereobm": bm(algorithm="sgm", sgm_paths=4,
-                                                 num_disparities=128)}, sframes, "mono8",
-             GRAPH_PROFILED),
-            # its eager frame is ~59,000 launches: one frame in each profiler window
-            ("SGM 8 paths", {"stereobm": bm(algorithm="sgm", sgm_paths=8)}, sframes, "mono8",
-             1),
-            ("Bayer", {}, frames, "bayer_grbg8", GRAPH_PROFILED),
+    # the 2- and 8-path rows against the CPU run too: the frames the e2e
+    # phases compared (the same frames and config), and one CPU frame at 64
+    cpu64 = [port.StereoPipeline.from_arrays(
+        *arrays, port.PipelineConfig(**sgm(sgm_paths=8)), device="cpu"
+    ).process(*sframes[0], outputs).fetch()]
+    for label, cfg, fr, enc, cpu in (
+            ("BM", {}, frames, "mono8", None),
+            ("BM lr_check", {"stereobm": bm(lr_check=True)}, frames, "mono8", None),
+            ("SGM 4 paths 128d", sgm(sgm_paths=4, num_disparities=128), sframes, "mono8",
+             None),
+            ("SGM 8 paths 64d", sgm(sgm_paths=8), sframes, "mono8", cpu64),
+            ("SGM 8 paths 128d", sgm(sgm_paths=8, num_disparities=128), sframes, "mono8",
+             cpu_sgm["sgm8"]),
+            ("SGM 2 paths 128d", sgm(sgm_paths=2, num_disparities=128), sframes, "mono8",
+             cpu_sgm["sgm2"]),
+            ("Bayer", {}, frames, "bayer_grbg8", None),
             ("bilateral iters 1", {"bilateral": port.BilateralConfig(enabled=True, iters=1)},
-             frames, "mono8", GRAPH_PROFILED)):
+             frames, "mono8", None)):
         lines.append(graph_pipeline(torch, timing, pipe(**cfg), fr[:GRAPH_FRAMES], outputs,
-                                    label, enc, profiled))
+                                    label, enc, cpu=cpu))
     lines.append(graph_batch(torch, timing, pipe(), frames[:GRAPH_BATCH], outputs))
     lines.append(graph_vo(torch, port, timing, vo_mod, planar_model(calib),
                           [(left, right) for left, right, _ in slam_frames[:GRAPH_FRAMES]], dev))
@@ -2352,7 +2415,7 @@ def run_bench(torch, port, bench, dev):
     exit 0; the last line parses and holds at most 1,800 characters; every
     headline metric is present, finite and > 0, each spread's min and max
     too; no ``*_error`` key in either line; the record's launch counts (set
-    to 0 at the bench's start) show K1–K6 launched and K7 and BL not.  Then,
+    to 0 at the bench's start) show K1–K6 launched and K7, BL and DG not.  Then,
     in this process, the compute section's timed window (BENCH_WINDOW_ITERS
     batches of B frames enqueued back to back) and one unit of work of the
     SGM and SLAM-compute sections, each under
@@ -2394,7 +2457,7 @@ def run_bench(torch, port, bench, dev):
     by_symbol = record["kernel_launches"]
     launches = {k: by_symbol.get(SOURCES[k][0], 0) for k in SOURCES}
     if not all(launches[k] > 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")) or \
-            launches["K7"] or launches["BL"]:
+            launches["K7"] or launches["BL"] or launches["DG"]:
         raise AssertionError(f"bench: launches {launches}")
     log(f"bench launches: {launches}")
 
@@ -2684,7 +2747,8 @@ def main() -> int:
                    for i in range(SGM_FRAMES)]
         per_frame = {"K1": (k1, 2), "K2": (stereobm_kernel.KERNEL, 0),
                      "K3": (speckle_kernel.KERNEL, 1), "K4": (sgm_kernel.COST_DOWN, 1),
-                     "K5": (sgm_kernel.AGGREGATE, 3), "K6": (sgm_kernel.WTA, 1)}
+                     "K4 cost": (sgm_kernel.COST, 0), "K5": (sgm_kernel.AGGREGATE, 3),
+                     "DG": (sgm_kernel.DIAGONAL, 0), "K6": (sgm_kernel.WTA, 1)}
         sgm_ms, gpu_out, launches["sgm"] = drive(torch, _build, spipe, sframes, outputs,
                                                  per_frame, SGM_COMPARED)
         log(f"SGM launches over {SGM_FRAMES} frames: {launches['sgm']}")
@@ -2707,10 +2771,36 @@ def main() -> int:
         compare_outputs(got[0], lr_cpu.process(*sframes[0], outputs).fetch(),
                         "SGM lr_check frame 0")
 
+    # -- SGM over 8 and over 2 paths end to end: DG, K4's cost stage alone ------
+    cpu_sgm = {}     # path label -> the CPU run's outputs of its compared frames
+    for label, paths, kern in (
+            ("sgm8", 8, {"K4": (sgm_kernel.COST_DOWN, 1), "K4 cost": (sgm_kernel.COST, 0),
+                         "K5": (sgm_kernel.AGGREGATE, 3), "DG": (sgm_kernel.DIAGONAL, 2)}),
+            ("sgm2", 2, {"K4": (sgm_kernel.COST_DOWN, 0), "K4 cost": (sgm_kernel.COST, 1),
+                         "K5": (sgm_kernel.AGGREGATE, 2), "DG": (sgm_kernel.DIAGONAL, 0)})):
+        with phase(f"SGM {paths} paths e2e", seconds):
+            cfg = port.PipelineConfig(stereobm=sgm_bm.replace(sgm_paths=paths))
+            ppipe = new_pipe(config=cfg, device=dev)
+            pcpu = new_pipe(config=cfg, device="cpu")
+            per_frame = {"K1": (k1, 2), "K2": (stereobm_kernel.KERNEL, 0),
+                         "K3": (speckle_kernel.KERNEL, 1), "K6": (sgm_kernel.WTA, 1), **kern}
+            p_ms, gpu_out, launches[label] = drive(torch, _build, ppipe, sframes, outputs,
+                                                   per_frame, SGM_COMPARED)
+            log(f"SGM {paths} paths launches over {SGM_FRAMES} frames: {launches[label]}")
+            p_pipelined = pipelined(torch, ppipe, sframes, outputs)
+            cpu_sgm[label] = [pcpu.process(*sframes[i], outputs).fetch()
+                              for i in range(SGM_COMPARED)]
+            for i in range(SGM_COMPARED):
+                compare_outputs(gpu_out[i], cpu_sgm[label][i], f"SGM {paths} paths frame {i}")
+            e2e.append(summary(label, p_ms, p_pipelined))
+            if args.profile:
+                profile_frames(torch, timing, ppipe, sframes[1:6], outputs,
+                               os.path.join(args.profile, label), label)
+
     # -- the compiled dispatch: captured variants beside the eager step --------
     with phase("graphs", seconds):
         e2e += run_graphs(torch, port, timing, bench, graphs, speckle_kernel, vo_mod, calib,
-                          arrays, frames, sframes, slam_frames()[0], dev)
+                          arrays, frames, sframes, slam_frames()[0], cpu_sgm, dev)
 
     # -- the row-band mesh end to end ----------------------------------------
     with phase("mesh e2e", seconds):
@@ -2804,9 +2894,9 @@ def main() -> int:
 
     # -- the SLAM engine end to end -------------------------------------------
     kernels = {"K1": k1, "K2": stereobm_kernel.KERNEL, "K3": speckle_kernel.KERNEL,
-               "K4": sgm_kernel.COST_DOWN, "K5": sgm_kernel.AGGREGATE,
-               "K6": sgm_kernel.WTA, "K7": speckle_kernel.MAXPROP,
-               "BL": speckle_kernel.BAND_LABELS}
+               "K4": sgm_kernel.COST_DOWN, "K4 cost": sgm_kernel.COST,
+               "K5": sgm_kernel.AGGREGATE, "K6": sgm_kernel.WTA, "K7": speckle_kernel.MAXPROP,
+               "BL": speckle_kernel.BAND_LABELS, "DG": sgm_kernel.DIAGONAL}
     with phase("SLAM e2e", seconds):
         sframes, gt = slam_frames()
         line, launches["slam"], positions = run_slam(
@@ -2856,10 +2946,12 @@ def main() -> int:
         line, launches["bench"] = run_bench(torch, port, bench, dev)
         e2e.append(line)
 
+    results["K4"]["cost_only"]["launches"] = launches["sgm2"]["K4 cost"]
     kernels = []
-    for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "BL"):
+    for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "BL", "DG"):
         sym, src, tpu = SOURCES[k]
-        path = {"K1": "bm", "K2": "bm", "K3": "bm", "K7": "mesh", "BL": "mesh"}.get(k, "sgm")
+        path = {"K1": "bm", "K2": "bm", "K3": "bm", "K7": "mesh", "BL": "mesh",
+                "DG": "sgm8"}.get(k, "sgm")
         kernels.append({
             "name": sym, "route": "cuda",
             "source": f"ros_gpu_stereo_processor_tpu_torch/{src}",

@@ -1,18 +1,25 @@
-// Fused 4-path semi-global matching (SGM) for Hopper (sm_90a): cost volume
-// with the down path, one path direction per call, and winner-take-all.
+// Semi-global matching (SGM) over 2, 4 or 8 paths for Hopper (sm_90a): cost
+// volume with the down path, one path direction per call, the diagonal pairs,
+// and winner-take-all.
 //
 // Replaces the three TPU kernels of ros_gpu_stereo_processor_tpu/ops/
-// sgm_pallas.py (launched by sgm_fused_raw):
+// sgm_pallas.py (launched by sgm_fused_raw) and the jnp diagonal scans of
+// ops/sgm.py, which the JAX pipeline runs for 8 paths:
 //   sgm_cost_down  <- _cost_and_down (K4): the clamped SAD cost volume and the
 //                     down path's excess L - C;
+//   sgm_cost       <- K4's cost stage alone (2 paths walk no vertical path);
 //   sgm_aggregate  <- _aggregate (K5): one path direction, forward or reverse,
 //                     writing its excess or, given the opposite direction's,
 //                     the pair sum;
+//   sgm_aggregate_diagonal <- _aggregate_diagonal of ops/sgm.py (DG, no TPU
+//                     kernel): one diagonal line pair, both directions in one
+//                     launch, writing the pair sum;
 //   sgm_wta        <- _wta (K6): winner-take-all with the parabolic subpixel
-//                     step and the uniqueness sweep over
-//                     total = (4 * cost + exc_v) + exc_h.
-// Plain versions: ops/sgm_kernel.py::cost_and_down_plain, aggregate_plain and
-// wta_plain.
+//                     step and the uniqueness sweep over the total of 2, 4 or
+//                     8 paths (2 c + exc_h; (4 c + exc_v) + exc_h; and the
+//                     two diagonal pair sums added for 8).
+// Plain versions: ops/sgm_kernel.py::cost_and_down_plain, cost_volume_plain,
+// aggregate_plain, aggregate_diagonal_plain and wta_plain.
 //
 // Layout: every volume is (H, W, nd), disparity innermost.  A walk in any of
 // the four directions then reads and writes nd contiguous values per pixel,
@@ -35,7 +42,8 @@
 // covers the real H x W and nothing else.
 //
 // Exactness: the kernels do the plain versions' float32 operations in the
-// same order where order matters (the WTA total as (4c + ev) + eh; in mode
+// same order where order matters (the WTA total as (4c + ev) + eh, or
+// ((8c + ev) + eh + ed1) + ed2, or 2c + eh; in mode
 // 2 the SAD as a column sum over the block rows, top to bottom, then a row
 // sum over the block columns, left to right), and the library builds with
 // --fmad=false, so kernel and plain version agree bit for bit in every mode,
@@ -81,7 +89,19 @@
 //     480 x 128 (mode 0) a step takes ~0.07 us on rows without an incoming
 //     excess, ~0.09 with one, and ~0.14 on columns, where 752 warps share
 //     the 528 SM sub-partitions, two to some.
-//   sgm_wta: bytes (reads three volumes once, writes three maps).  One warp
+//   sgm_aggregate_diagonal (DG): bytes, as a K5 call, but a line of a
+//     diagonal is 1 to min(H, W) pixels long (W + H - 1 lines): each warp
+//     walks its line down and then back up in the same launch, so the time
+//     is about twice the longest line (H = 480 steps) times a step, and
+//     the short corner lines finish early.  The walk is K5's (walk_line):
+//     the same ring, the same step, the carry starting at 1e6 (_RESTART) as
+//     JAX's, so a line starts at L = C exactly; pixel to pixel (W +- 1) * nd
+//     elements.  The second pass reads the first pass's excess back as its
+//     incoming excess and writes the pair sum over it: a pixel's excess is
+//     copied into the ring before the step that overwrites it, and a device
+//     fence between the passes makes the first pass's stores visible to the
+//     copies, which read L2.
+//   sgm_wta: bytes (reads 2 to 5 volumes once, writes three maps).  One warp
 //     per pixel reads its nd totals coalesced (lane l holds nd / 32 of them);
 //     the best is the warp minimum and its disparity the smallest index that
 //     holds it, which is what a running strict-< scan keeps (ties to the
@@ -103,6 +123,7 @@
 namespace {
 
 constexpr float kBig = 1e9f;
+constexpr float kRestart = 1e6f;        // ops/sgm.py's _RESTART: a diagonal's carry at its start
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kCostTileX = 32;          // output columns per block of the mode-2 cost kernel
 constexpr int kCostThreads = 256;
@@ -325,24 +346,28 @@ __host__ __device__ constexpr int walk_depth() {
 template <int K, typename CostT, typename ExcT>
 __host__ __device__ constexpr int walk_slots() { return walk_depth<K, CostT, ExcT>() + 2; }
 
-// One warp per path line (a column when vertical, else a row), walked
-// forward or in reverse; lane l holds disparities l * K .. l * K + K - 1 of
-// the carry.  The line's pixels (nd cost values, then nd exc_in values when
-// given; 16-byte aligned) are copied into a ring of shared-memory slots by
-// 16-byte cp.async, one commit group per pixel, D pixels ahead of the step
-// that reads them: with exc_in, lanes 0-15 copy the cost and lanes 16-31
-// the excess, so each lane keeps one source pointer and moves it by a fixed
-// stride per step.  A step issues the warp minimum and the neighbour
-// shuffles of the carry first, then waits for the group of the pixel after
-// its own (landed long before), reads that pixel's values into registers a
-// step early (K <= 8) and issues the next copy, so the latencies of the
-// reduction and the shuffles hide behind that work; then the recurrence, in
-// int32 on integer storage.  Each lane writes its K outputs as whole words.
+// One warp walks one path line of `len` pixels, the first at element offset
+// `first` (its disparity 0), each next one `pix_step` elements on; lane l
+// holds disparities l * K .. l * K + K - 1 of the carry, which starts at
+// `init` (0 on an axis, as the plain version's carry; _RESTART on a
+// diagonal, as JAX's).  The line's pixels (nd cost values, then nd exc_in
+// values when given; 16-byte aligned) are copied into a ring of
+// shared-memory slots (`ring`) by 16-byte cp.async, one commit group per
+// pixel, D pixels ahead of the step that reads them: with exc_in, lanes 0-15
+// copy the cost and lanes 16-31 the excess, so each lane keeps one source
+// pointer and moves it by a fixed stride per step.  A step issues the warp
+// minimum and the neighbour shuffles of the carry first, then waits for the
+// group of the pixel after its own (landed long before), reads that pixel's
+// values into registers a step early (K <= 8) and issues the next copy, so
+// the latencies of the reduction and the shuffles hide behind that work;
+// then the recurrence, in int32 on integer storage.  Each lane writes its K
+// outputs as whole words.  exc_in may be exc_out (the diagonal's second
+// pass): a pixel's excess is copied in before the step that overwrites it.
 template <int K, typename CostT, typename ExcT>
-__global__ void __launch_bounds__(32)
-sgm_walk_kernel(const CostT* __restrict__ cost, const ExcT* __restrict__ exc_in,
-                ExcT* __restrict__ exc_out, int H, int W, int nd, float p1, float p2,
-                int vertical, int reverse) {
+__device__ __forceinline__ void walk_line(const CostT* __restrict__ cost, const ExcT* exc_in,
+                                          ExcT* exc_out, int len, long long first,
+                                          long long pix_step, int nd, float p1, float p2,
+                                          float init, unsigned char* ring) {
   using V = WalkT<CostT>;
   constexpr int D = walk_depth<K, CostT, ExcT>();
   constexpr int R = walk_slots<K, CostT, ExcT>();
@@ -351,20 +376,11 @@ sgm_walk_kernel(const CostT* __restrict__ cost, const ExcT* __restrict__ exc_in,
   // 16 lanes (exc_in's are no wider)
   constexpr int NQ = K * static_cast<int>(sizeof(CostT)) / 8 > 1
                          ? K * static_cast<int>(sizeof(CostT)) / 8 : 1;
-  extern __shared__ __align__(16) unsigned char walk_smem[];
-  const int lane = threadIdx.x, line = blockIdx.x;   // one warp, one line, per block
-  const int len = vertical ? H : W;
-  const long long stride = vertical ? static_cast<long long>(W) * nd : nd;   // pixel to pixel
-  const long long pix_step = reverse ? -stride : stride;                      // in walk order
-  // element offset of the line's first pixel in walk order (its disparity 0)
-  const long long first = (vertical ? static_cast<long long>(line) * nd
-                                    : static_cast<long long>(line) * W * nd) +
-                          (reverse ? (len - 1) * stride : 0);
+  const int lane = threadIdx.x;
   const bool has_in = exc_in != nullptr;
   const int cost_bytes = nd * static_cast<int>(sizeof(CostT));
   const int pix_bytes = cost_bytes + (has_in ? nd * static_cast<int>(sizeof(ExcT)) : 0);
   const int ring_bytes = R * pix_bytes;
-  unsigned char* ring = walk_smem;
   const int d0 = lane * K;
 
   // this lane's share of a pixel's copies: bytes 16 * (part + lanes * t) of
@@ -397,12 +413,13 @@ sgm_walk_kernel(const CostT* __restrict__ cost, const ExcT* __restrict__ exc_in,
   };
 
   const V vp1 = static_cast<V>(p1), vp2 = static_cast<V>(p2), big = static_cast<V>(kBig);
+  const V v0 = static_cast<V>(init);
   // the carry, and the cost of disparities past nd as +1e9: such an L stays
   // at 1e9 + [0, P2], above every real one, so it never wins a minimum
   V L[K];
 #pragma unroll
-  for (int k = 0; k < K; ++k) L[k] = d0 + k < nd ? V(0) : big;
-  V lm = d0 < nd ? V(0) : big;          // the lane's minimum of the carry
+  for (int k = 0; k < K; ++k) L[k] = d0 + k < nd ? v0 : big;
+  V lm = d0 < nd ? v0 : big;            // the lane's minimum of the carry
   ExcT* out_ptr = exc_out + first + d0;
   // D + 1 groups ahead (empty past the line's end, so the counts hold)
   for (int s = 0; s <= D; ++s) {
@@ -498,12 +515,81 @@ sgm_walk_kernel(const CostT* __restrict__ cost, const ExcT* __restrict__ exc_in,
     walk(std::false_type{});
 }
 
-template <typename CostT, typename ExcT>
+// K5 and K4's down walk: one warp per path line (a column when vertical,
+// else a row), walked forward or in reverse, in 1-warp blocks.
+template <int K, typename CostT, typename ExcT>
+__global__ void __launch_bounds__(32)
+sgm_walk_kernel(const CostT* __restrict__ cost, const ExcT* __restrict__ exc_in,
+                ExcT* __restrict__ exc_out, int H, int W, int nd, float p1, float p2,
+                int vertical, int reverse) {
+  extern __shared__ __align__(16) unsigned char walk_smem[];
+  const int line = blockIdx.x;          // one warp, one line, per block
+  const int len = vertical ? H : W;
+  const long long stride = vertical ? static_cast<long long>(W) * nd : nd;   // pixel to pixel
+  // element offset of the line's first pixel in walk order (its disparity 0)
+  const long long first = (vertical ? static_cast<long long>(line) * nd
+                                    : static_cast<long long>(line) * W * nd) +
+                          (reverse ? (len - 1) * stride : 0);
+  walk_line<K, CostT, ExcT>(cost, exc_in, exc_out, len, first, reverse ? -stride : stride, nd,
+                            p1, p2, 0.0f, walk_smem);
+}
+
+// DG: one diagonal pair, one warp per line in 1-warp blocks.  JAX's
+// _aggregate_diagonal walks rows and shifts its carry dx columns a row, with
+// _RESTART in the vacated column, so each 45-degree line is a path of its
+// own that starts, at L = C, where it enters the image.  dx = +1: the lines
+// x - y = line - (H - 1), pixel to pixel (W + 1) * nd elements; dx = -1: the
+// lines x + y = line, (W - 1) * nd; W + H - 1 lines of 1 to min(H, W)
+// pixels.  The warp walks its line top to bottom (dx, forward), writing the
+// excess to exc, then bottom to top (-dx, reverse) with exc as its incoming
+// excess, writing the pair sum over it: both directions of a line in one
+// launch, with no second volume.
+template <int K, typename CostT, typename ExcT>
+__global__ void __launch_bounds__(32)
+sgm_diagonal_kernel(const CostT* __restrict__ cost, ExcT* __restrict__ exc, int H, int W,
+                    int nd, float p1, float p2, int dx) {
+  extern __shared__ __align__(16) unsigned char walk_smem[];
+  const int line = blockIdx.x;
+  int y0, x0, len;                      // the line's top pixel and its length
+  if (dx > 0) {
+    const int k = line - (H - 1);
+    y0 = k < 0 ? -k : 0;
+    x0 = k < 0 ? 0 : k;
+    len = min(H - y0, W - x0);
+  } else {
+    y0 = line < W ? 0 : line - (W - 1);
+    x0 = line < W ? line : W - 1;
+    len = min(H - y0, x0 + 1);
+  }
+  const long long stride = (static_cast<long long>(W) + dx) * nd;
+  const long long top = (static_cast<long long>(y0) * W + x0) * nd;
+  walk_line<K, CostT, ExcT>(cost, nullptr, exc, len, top, stride, nd, p1, p2, kRestart,
+                            walk_smem);
+  // every lane's excess stores performed at device scope (the copies read
+  // L2) and every lane done with the ring before the second pass fills it
+  cp_wait<0>();
+  __threadfence();
+  __syncwarp();
+  walk_line<K, CostT, ExcT>(cost, exc, exc, len, top + (len - 1) * stride, -stride, nd, p1, p2,
+                            kRestart, walk_smem);
+}
+
+// The total over P paths: 2 * cost + exc_h; (4 * cost + exc_v) + exc_h; or
+// that with the two diagonal pair sums added, ((8 * cost + exc_v) + exc_h +
+// exc_d1) + exc_d2 -- the plain version's order.
+template <int P, typename CostT, typename ExcT>
 __device__ __forceinline__ float total_at(const CostT* cost, const ExcT* ev, const ExcT* eh,
-                                          long long o, int dd, int x, int mind, int r, int W) {
+                                          const ExcT* ed1, const ExcT* ed2, long long o, int dd,
+                                          int x, int mind, int r, int W) {
   const int d = mind + dd;
   const bool ok = (x - d >= r) && (x - d <= W - 1 - r);
-  const float t = (4.0f * ld(cost + o + dd) + ld(ev + o + dd)) + ld(eh + o + dd);
+  float t;
+  if constexpr (P == 2) {
+    t = 2.0f * ld(cost + o + dd) + ld(eh + o + dd);
+  } else {
+    t = (static_cast<float>(P) * ld(cost + o + dd) + ld(ev + o + dd)) + ld(eh + o + dd);
+    if constexpr (P == 8) t = (t + ld(ed1 + o + dd)) + ld(ed2 + o + dd);
+  }
   return ok ? t : kBig;
 }
 
@@ -511,9 +597,10 @@ __device__ __forceinline__ float total_at(const CostT* cost, const ExcT* ev, con
 // totals of disparities l * K .. l * K + K - 1: the first minimum is the
 // smallest index whose total equals the warp minimum, as a running
 // strict-< scan from 1e9 finds it.
-template <int K, typename CostT, typename ExcT>
+template <int K, int P, typename CostT, typename ExcT>
 __global__ void sgm_wta_kernel(const CostT* __restrict__ cost, const ExcT* __restrict__ ev,
-                               const ExcT* __restrict__ eh, float* __restrict__ disp_raw,
+                               const ExcT* __restrict__ eh, const ExcT* __restrict__ ed1,
+                               const ExcT* __restrict__ ed2, float* __restrict__ disp_raw,
                                float* __restrict__ best_cost, float* __restrict__ excl,
                                int H, int W, int nd, int mind, int r, int refine, int uniq) {
   const int lane = threadIdx.x & 31;
@@ -528,7 +615,7 @@ __global__ void sgm_wta_kernel(const CostT* __restrict__ cost, const ExcT* __res
     float lo = kBig;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      t[k] = d0 + k < nd ? total_at(cost, ev, eh, o, d0 + k, x, mind, r, W) : kBig;
+      t[k] = d0 + k < nd ? total_at<P>(cost, ev, eh, ed1, ed2, o, d0 + k, x, mind, r, W) : kBig;
       lo = fminf(lo, t[k]);
     }
     const float best = warp_min(lo);
@@ -570,51 +657,75 @@ __global__ void sgm_wta_kernel(const CostT* __restrict__ cost, const ExcT* __res
   }
 }
 
-// One walk at K disparities per lane: the ring's shared memory per line is
-// walk_slots pixels of nd cost values (and nd exc_in values when given).
-template <int K, typename CostT, typename ExcT>
-cudaError_t launch_walk_k(const void* cost, const void* exc_in, void* exc_out, int H, int W,
-                          int nd, float p1, float p2, int vertical, int reverse,
-                          cudaStream_t s) {
-  const long long pix = static_cast<long long>(nd) *
-                        (sizeof(CostT) + (exc_in != nullptr ? sizeof(ExcT) : 0));
-  const long long smem = walk_slots<K, CostT, ExcT>() * pix;
-  if (smem > kSmemMax) return cudaErrorInvalidValue;
-  const auto kernel = sgm_walk_kernel<K, CostT, ExcT>;
-  // per device, so on every launch
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<vertical ? W : H, 32, static_cast<size_t>(smem), s>>>(
-      static_cast<const CostT*>(cost), static_cast<const ExcT*>(exc_in),
-      static_cast<ExcT*>(exc_out), H, W, nd, p1, p2, vertical, reverse);
-  return cudaGetLastError();
+// f(std::integral_constant<int, K>{}) for K = nd / 32 rounded up to 1, 2,
+// 4 ... 32: a lane's disparities in the walks and the WTA.
+template <typename F>
+cudaError_t with_lane_width(int nd, F&& f) {
+  const int per_lane = (nd + 31) / 32;
+  if (per_lane <= 1) return f(std::integral_constant<int, 1>{});
+  if (per_lane <= 2) return f(std::integral_constant<int, 2>{});
+  if (per_lane <= 4) return f(std::integral_constant<int, 4>{});
+  if (per_lane <= 8) return f(std::integral_constant<int, 8>{});
+  if (per_lane <= 16) return f(std::integral_constant<int, 16>{});
+  if (per_lane <= 32) return f(std::integral_constant<int, 32>{});
+  return cudaErrorInvalidValue;
 }
 
 // nd must be a multiple of 16 (every pixel's span 16-byte aligned in every
 // storage mode) and at most 1024; the volumes 16-byte aligned.
+cudaError_t walk_args_ok(int nd, std::initializer_list<const void*> ptrs) {
+  if (nd % 16 != 0) return cudaErrorInvalidValue;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;
+  return cudaSuccess;
+}
+
+// A walk kernel's launch: its ring's shared memory per line is walk_slots
+// pixels of nd cost values, and nd excess values when `with_exc`.
+template <int K, typename CostT, typename ExcT, typename Kernel, typename... Args>
+cudaError_t launch_ring(Kernel kernel, bool with_exc, int lines, int nd, cudaStream_t s,
+                        Args... args) {
+  const long long pix = static_cast<long long>(nd) *
+                        (sizeof(CostT) + (with_exc ? sizeof(ExcT) : 0));
+  const long long smem = walk_slots<K, CostT, ExcT>() * pix;
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  // per device, so on every launch
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<lines, 32, static_cast<size_t>(smem), s>>>(args...);
+  return cudaGetLastError();
+}
+
 template <typename CostT, typename ExcT>
 cudaError_t launch_walk(const void* cost, const void* exc_in, void* exc_out, int H, int W,
                         int nd, float p1, float p2, int vertical, int reverse,
                         cudaStream_t s) {
   if (H == 0 || W == 0 || nd == 0) return cudaSuccess;
-  if (nd % 16 != 0) return cudaErrorInvalidValue;
-  for (const void* p : {cost, exc_in, static_cast<const void*>(exc_out)})
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;
-  const int per_lane = (nd + 31) / 32;
-  if (per_lane <= 1)
-    return launch_walk_k<1, CostT, ExcT>(cost, exc_in, exc_out, H, W, nd, p1, p2, vertical, reverse, s);
-  if (per_lane <= 2)
-    return launch_walk_k<2, CostT, ExcT>(cost, exc_in, exc_out, H, W, nd, p1, p2, vertical, reverse, s);
-  if (per_lane <= 4)
-    return launch_walk_k<4, CostT, ExcT>(cost, exc_in, exc_out, H, W, nd, p1, p2, vertical, reverse, s);
-  if (per_lane <= 8)
-    return launch_walk_k<8, CostT, ExcT>(cost, exc_in, exc_out, H, W, nd, p1, p2, vertical, reverse, s);
-  if (per_lane <= 16)
-    return launch_walk_k<16, CostT, ExcT>(cost, exc_in, exc_out, H, W, nd, p1, p2, vertical, reverse, s);
-  if (per_lane <= 32)
-    return launch_walk_k<32, CostT, ExcT>(cost, exc_in, exc_out, H, W, nd, p1, p2, vertical, reverse, s);
-  return cudaErrorInvalidValue;
+  const cudaError_t ok = walk_args_ok(nd, {cost, exc_in, exc_out});
+  if (ok != cudaSuccess) return ok;
+  return with_lane_width(nd, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    return launch_ring<K, CostT, ExcT>(
+        sgm_walk_kernel<K, CostT, ExcT>, exc_in != nullptr, vertical ? W : H, nd, s,
+        static_cast<const CostT*>(cost), static_cast<const ExcT*>(exc_in),
+        static_cast<ExcT*>(exc_out), H, W, nd, p1, p2, vertical, reverse);
+  });
+}
+
+template <typename CostT, typename ExcT>
+cudaError_t launch_diagonal(const void* cost, void* exc, int H, int W, int nd, float p1,
+                            float p2, int dx, cudaStream_t s) {
+  if (H == 0 || W == 0 || nd == 0) return cudaSuccess;
+  if (dx != 1 && dx != -1) return cudaErrorInvalidValue;
+  const cudaError_t ok = walk_args_ok(nd, {cost, exc});
+  if (ok != cudaSuccess) return ok;
+  return with_lane_width(nd, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    return launch_ring<K, CostT, ExcT>(
+        sgm_diagonal_kernel<K, CostT, ExcT>, true, W + H - 1, nd, s,
+        static_cast<const CostT*>(cost), static_cast<ExcT*>(exc), H, W, nd, p1, p2, dx);
+  });
 }
 
 // The cost stage of modes 0/1.  tile_rows: rows per warp strip (0:
@@ -669,25 +780,31 @@ cudaError_t cost_plain_order(const void* lf, const void* rf, void* cost, int H, 
   return cudaGetLastError();
 }
 
+// The cost stage alone: the storage mode fixes the kernel (integer storage
+// slides, float32 keeps the plain order).
+template <typename CostT>
+cudaError_t cost_stage(const void* lf, const void* rf, void* cost, int H, int W, int nd,
+                       int mind, int r, float clampv, int tile_rows, cudaStream_t s) {
+  if constexpr (std::is_same_v<CostT, float>)
+    return cost_plain_order<CostT>(lf, rf, cost, H, W, nd, mind, r, clampv, s);
+  else
+    return cost_slide(lf, rf, cost, H, W, nd, mind, r, clampv, tile_rows, s);
+}
+
 template <typename CostT, typename ExcT>
 cudaError_t cost_down(const void* lf, const void* rf, void* cost, void* exc, int H, int W,
                       int nd, int mind, int r, float clampv, float p1, float p2, int tile_rows,
                       cudaStream_t s) {
-  // the storage mode fixes the kernel: integer storage slides, float32 keeps
-  // the plain order
-  cudaError_t err;
-  if constexpr (std::is_same_v<CostT, float>)
-    err = cost_plain_order<CostT>(lf, rf, cost, H, W, nd, mind, r, clampv, s);
-  else
-    err = cost_slide(lf, rf, cost, H, W, nd, mind, r, clampv, tile_rows, s);
+  const cudaError_t err = cost_stage<CostT>(lf, rf, cost, H, W, nd, mind, r, clampv, tile_rows, s);
   if (err != cudaSuccess) return err;
   return launch_walk<CostT, ExcT>(cost, nullptr, exc, H, W, nd, p1, p2, 1, 0, s);
 }
 
+// exc_v is unused with 2 paths, exc_d1 and exc_d2 with fewer than 8.
 template <typename CostT, typename ExcT>
-cudaError_t wta(const void* cost, const void* ev, const void* eh, void* disp, void* best,
-                void* excl, int H, int W, int nd, int mind, int r, int refine, int uniq,
-                cudaStream_t s) {
+cudaError_t wta(const void* cost, const void* ev, const void* eh, const void* ed1,
+                const void* ed2, void* disp, void* best, void* excl, int H, int W, int nd,
+                int mind, int r, int refine, int uniq, int paths, cudaStream_t s) {
   const long long n = static_cast<long long>(H) * W;
   const int warps = kWtaThreads / 32;
   const long long blocks_needed = (n + warps - 1) / warps;
@@ -695,25 +812,24 @@ cudaError_t wta(const void* cost, const void* ev, const void* eh, void* disp, vo
   const CostT* c = static_cast<const CostT*>(cost);
   const ExcT* v = static_cast<const ExcT*>(ev);
   const ExcT* h = static_cast<const ExcT*>(eh);
+  const ExcT* d1 = static_cast<const ExcT*>(ed1);
+  const ExcT* d2 = static_cast<const ExcT*>(ed2);
   float* d = static_cast<float*>(disp);
   float* b = static_cast<float*>(best);
   float* x = static_cast<float*>(excl);
-  const int per_lane = (nd + 31) / 32;
-  if (per_lane <= 1)
-    sgm_wta_kernel<1, CostT, ExcT><<<grid, kWtaThreads, 0, s>>>(c, v, h, d, b, x, H, W, nd, mind, r, refine, uniq);
-  else if (per_lane <= 2)
-    sgm_wta_kernel<2, CostT, ExcT><<<grid, kWtaThreads, 0, s>>>(c, v, h, d, b, x, H, W, nd, mind, r, refine, uniq);
-  else if (per_lane <= 4)
-    sgm_wta_kernel<4, CostT, ExcT><<<grid, kWtaThreads, 0, s>>>(c, v, h, d, b, x, H, W, nd, mind, r, refine, uniq);
-  else if (per_lane <= 8)
-    sgm_wta_kernel<8, CostT, ExcT><<<grid, kWtaThreads, 0, s>>>(c, v, h, d, b, x, H, W, nd, mind, r, refine, uniq);
-  else if (per_lane <= 16)
-    sgm_wta_kernel<16, CostT, ExcT><<<grid, kWtaThreads, 0, s>>>(c, v, h, d, b, x, H, W, nd, mind, r, refine, uniq);
-  else if (per_lane <= 32)
-    sgm_wta_kernel<32, CostT, ExcT><<<grid, kWtaThreads, 0, s>>>(c, v, h, d, b, x, H, W, nd, mind, r, refine, uniq);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  return with_lane_width(nd, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    auto launch = [&](auto kernel) {
+      kernel<<<grid, kWtaThreads, 0, s>>>(c, v, h, d1, d2, d, b, x, H, W, nd, mind, r, refine, uniq);
+      return cudaGetLastError();
+    };
+    switch (paths) {
+      case 2: return launch(sgm_wta_kernel<K, 2, CostT, ExcT>);
+      case 4: return launch(sgm_wta_kernel<K, 4, CostT, ExcT>);
+      case 8: return launch(sgm_wta_kernel<K, 8, CostT, ExcT>);
+      default: return cudaErrorInvalidValue;
+    }
+  });
 }
 
 }  // namespace
@@ -749,16 +865,47 @@ extern "C" int sgm_aggregate(const void* cost, const void* exc_in, void* exc_out
   }
 }
 
-// cost, exc_v, exc_h: (H, W, nd); disp_raw, best_cost, excl: (H, W) float32.
-extern "C" int sgm_wta(const void* cost, const void* exc_v, const void* exc_h, void* disp_raw,
-                       void* best_cost, void* excl, int H, int W, int nd, int mind, int r,
-                       int refine, int uniq, int mode, void* stream) {
+// lf, rf as sgm_cost_down's; cost: (H, W, nd) in the cost type of `mode`.
+// One launch: sgm_cost_down's cost stage without its down walk (2 paths).
+extern "C" int sgm_cost(const void* lf, const void* rf, void* cost, int H, int W, int nd,
+                        int mind, int r, float clampv, int mode, int tile_rows, void* stream) {
   if (H == 0 || W == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case 0: return static_cast<int>(wta<uint16_t, uint8_t>(cost, exc_v, exc_h, disp_raw, best_cost, excl, H, W, nd, mind, r, refine, uniq, s));
-    case 1: return static_cast<int>(wta<uint16_t, int16_t>(cost, exc_v, exc_h, disp_raw, best_cost, excl, H, W, nd, mind, r, refine, uniq, s));
-    case 2: return static_cast<int>(wta<float, float>(cost, exc_v, exc_h, disp_raw, best_cost, excl, H, W, nd, mind, r, refine, uniq, s));
+    case 0:
+    case 1: return static_cast<int>(cost_stage<uint16_t>(lf, rf, cost, H, W, nd, mind, r, clampv, tile_rows, s));
+    case 2: return static_cast<int>(cost_stage<float>(lf, rf, cost, H, W, nd, mind, r, clampv, tile_rows, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// cost: (H, W, nd); exc: (H, W, nd) output, the pair sum of the diagonal
+// directions (dx, forward) and (-dx, reverse) of ops/sgm.py.  One launch.
+extern "C" int sgm_aggregate_diagonal(const void* cost, void* exc, int H, int W, int nd,
+                                      float p1, float p2, int dx, int mode, void* stream) {
+  if (H == 0 || W == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case 0: return static_cast<int>(launch_diagonal<uint16_t, uint8_t>(cost, exc, H, W, nd, p1, p2, dx, s));
+    case 1: return static_cast<int>(launch_diagonal<uint16_t, int16_t>(cost, exc, H, W, nd, p1, p2, dx, s));
+    case 2: return static_cast<int>(launch_diagonal<float, float>(cost, exc, H, W, nd, p1, p2, dx, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// cost, exc_v, exc_h, exc_d1, exc_d2: (H, W, nd), the total over `paths` (2,
+// 4 or 8; exc_v is null with 2 paths, exc_d1 and exc_d2 with fewer than 8);
+// disp_raw, best_cost, excl: (H, W) float32.
+extern "C" int sgm_wta(const void* cost, const void* exc_v, const void* exc_h,
+                       const void* exc_d1, const void* exc_d2, void* disp_raw, void* best_cost,
+                       void* excl, int H, int W, int nd, int mind, int r, int refine, int uniq,
+                       int paths, int mode, void* stream) {
+  if (H == 0 || W == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case 0: return static_cast<int>(wta<uint16_t, uint8_t>(cost, exc_v, exc_h, exc_d1, exc_d2, disp_raw, best_cost, excl, H, W, nd, mind, r, refine, uniq, paths, s));
+    case 1: return static_cast<int>(wta<uint16_t, int16_t>(cost, exc_v, exc_h, exc_d1, exc_d2, disp_raw, best_cost, excl, H, W, nd, mind, r, refine, uniq, paths, s));
+    case 2: return static_cast<int>(wta<float, float>(cost, exc_v, exc_h, exc_d1, exc_d2, disp_raw, best_cost, excl, H, W, nd, mind, r, refine, uniq, paths, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -26,8 +26,9 @@ caller asks for ``device="cpu"``.  There is no device switch beyond that:
 each kernel-backed op dispatches on the device of its tensors (the Hopper
 kernel on CUDA, the plain version on the CPU), and nothing falls back from
 one to the other.  The matcher is the block matcher or, with
-``algorithm="sgm"``, semi-global matching: the fused kernels for 4 paths,
-the plain recurrences of ops/sgm.py for 2 and 8, as in the JAX pipeline.
+``algorithm="sgm"``, semi-global matching over 2, 4 or 8 paths, all
+through the kernels of ops/sgm_kernel.py (the JAX pipeline routes only 4
+paths to Pallas and scans 2 and 8 in jnp; the functions are the same).
 
 The optional bilateral post-filter (``config.bilateral.enabled``) refines
 the disparity after the speckle filter, guided by the left rectified image
@@ -68,7 +69,6 @@ from ros_gpu_stereo_processor_tpu_torch.ops import color as color_ops
 from ros_gpu_stereo_processor_tpu_torch.ops import colormap as colormap_ops
 from ros_gpu_stereo_processor_tpu_torch.ops import remap_kernel
 from ros_gpu_stereo_processor_tpu_torch.ops import reproject as reproject_ops
-from ros_gpu_stereo_processor_tpu_torch.ops import sgm as sgm_ops
 from ros_gpu_stereo_processor_tpu_torch.ops import sgm_kernel
 from ros_gpu_stereo_processor_tpu_torch.ops import speckle as speckle_ops
 from ros_gpu_stereo_processor_tpu_torch.ops import stereobm_kernel
@@ -192,13 +192,8 @@ def _pipeline_step(
     if outputs.needs_disparity:
         if mesh is not None:
             disp, valid = _mesh_disparity(rect_mono, bm, speckle, mesh, shard_axis, shard_mode)
-        elif bm.algorithm == "sgm" and bm.sgm_paths == 4:
-            disp, valid = sgm_kernel.compute_disparity_sgm_fused(
-                rect_mono["left"], rect_mono["right"], bm,
-                p1=bm.sgm_p1, p2=bm.sgm_p2,
-            )
         elif bm.algorithm == "sgm":
-            disp, valid = sgm_ops.compute_disparity_sgm(
+            disp, valid = sgm_kernel.compute_disparity_sgm_fused(
                 rect_mono["left"], rect_mono["right"], bm,
                 p1=bm.sgm_p1, p2=bm.sgm_p2, num_paths=bm.sgm_paths,
             )

@@ -12,9 +12,10 @@ matcher's gates and optional left-right check.  Each direction's recurrence
 is a Python loop along the path axis over (perpendicular slice, nd) planes,
 in the JAX function's operation order, so on uint8 input (every cost,
 excess and total an integer below 2^24) it equals the JAX oracle bit for
-bit.  The pipeline runs this module for 2 and 8 paths on either device, as
-the JAX pipeline runs its jnp scans; 4 paths go through the fused kernels
-of ops/sgm_kernel.py.
+bit.  It is the plain reference: the pipeline runs 2, 4 and 8 paths
+through ops/sgm_kernel.py (the kernels on the card, their plain versions,
+built on :func:`path_excess` and :func:`diagonal_excess`, on the CPU), and
+the tests hold both to this module.
 """
 
 from __future__ import annotations
@@ -49,12 +50,6 @@ def step_excess(prev: torch.Tensor, p1: float, p2: float) -> torch.Tensor:
     return best - m
 
 
-def _step_update(prev: torch.Tensor, cost_slice: torch.Tensor,
-                 p1: float, p2: float) -> torch.Tensor:
-    # c + (best − m): best − m ≤ P2 is small, so the sum stays precise
-    return cost_slice + step_excess(prev, p1, p2)
-
-
 def path_excess(cost: torch.Tensor, exc_in: Optional[torch.Tensor], p1: float,
                 p2: float, vertical: bool, reverse: bool) -> torch.Tensor:
     """The excess ``L − C`` of one path direction over a float32 (H, W, nd)
@@ -74,11 +69,13 @@ def path_excess(cost: torch.Tensor, exc_in: Optional[torch.Tensor], p1: float,
     return out.movedim(0, axis)
 
 
-def _aggregate_diagonal(cost: torch.Tensor, dx: int, reverse: bool,
-                        p1: float, p2: float) -> torch.Tensor:
-    """Aggregate along a 45° diagonal: walk rows, shifting the carry by
-    ``dx`` columns per row.  Vacated carry columns get the path-restart
-    value, so image borders behave exactly like path starts (no wrap)."""
+def diagonal_excess(cost: torch.Tensor, exc_in: Optional[torch.Tensor], p1: float,
+                    p2: float, dx: int, reverse: bool) -> torch.Tensor:
+    """The excess ``L − C`` of one 45° diagonal direction over a float32
+    (H, W, nd) volume, plus ``exc_in`` when given: walk rows (upwards when
+    ``reverse``), shifting the carry by ``dx`` columns per row.  Vacated
+    carry columns get the path-restart value, so image borders behave
+    exactly like path starts (no wrap): each diagonal is a path of its own."""
     fill = torch.full_like(cost[0, :1], _RESTART)
 
     def shift_cols(a):
@@ -91,9 +88,17 @@ def _aggregate_diagonal(cost: torch.Tensor, dx: int, reverse: bool,
     out = torch.empty_like(cost)
     prev = torch.full_like(cost[0], _RESTART)
     for t in order:
-        prev = _step_update(shift_cols(prev), cost[t], p1, p2)
-        out[t] = prev
+        e = step_excess(shift_cols(prev), p1, p2)
+        prev = cost[t] + e
+        out[t] = e if exc_in is None else e + exc_in[t]
     return out
+
+
+def _aggregate_diagonal(cost: torch.Tensor, dx: int, reverse: bool,
+                        p1: float, p2: float) -> torch.Tensor:
+    """Aggregate along a 45° diagonal: ``L = C + excess``
+    (:func:`diagonal_excess`), as JAX's ``_step_update`` adds it row by row."""
+    return cost + diagonal_excess(cost, None, p1, p2, dx, reverse)
 
 
 def compute_disparity_sgm(

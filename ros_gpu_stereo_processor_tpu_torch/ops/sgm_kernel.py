@@ -1,38 +1,47 @@
-"""Fused 4-path SGM on the card: the wrappers of ``csrc/sgm.cu``.
+"""SGM over 2, 4 or 8 paths on the card: the wrappers of ``csrc/sgm.cu``.
 
 The port of ``ros_gpu_stereo_processor_tpu/ops/sgm_pallas.py`` and its
-three TPU kernels:
+three TPU kernels, and of the jnp diagonal scans of ``ops/sgm.py``:
 
   * K4 :func:`cost_and_down` (``_cost_and_down``): the clamped SAD cost
-    volume and the down path's excess ``L − C`` in one call;
+    volume and the down path's excess ``L − C`` in one call; its cost stage
+    alone is :func:`cost_volume` (2 paths walk no vertical path);
   * K5 :func:`aggregate` (``_aggregate``): one path direction, forward or
     reverse; given the opposite direction's excess it writes the pair sum;
+  * DG :func:`aggregate_diagonal` (``ops/sgm.py::_aggregate_diagonal``, no
+    TPU kernel): one diagonal line pair, both directions in one launch,
+    written as the pair sum;
   * K6 :func:`wta` (``_wta``): winner-take-all, subpixel step and the
-    uniqueness sweep over ``total = (4·cost + exc_v) + exc_h``.
+    uniqueness sweep over the total of 2, 4 or 8 paths, ``n·cost`` plus the
+    pair sums in order: ``2·cost + exc_h``, ``(4·cost + exc_v) + exc_h``,
+    ``(((8·cost + exc_v) + exc_h) + exc_d1) + exc_d2``.
 
-:func:`sgm_fused_raw` chains them: K4, K5 up (pair sum with the down
-excess), K5 left→right, K5 right→left (pair sum), K6.
+:func:`sgm_fused_raw` chains them: with 4 paths K4, K5 up (pair sum with the
+down excess), K5 left→right, K5 right→left (pair sum), K6; with 8 paths the
+same and DG twice (dx +1 down with dx −1 up, dx −1 down with dx +1 up)
+before K6; with 2 paths K4's cost stage, the two K5 row calls and K6.
 
-Each of the three is the op's one dispatch point: a CUDA tensor launches
-the kernel, a CPU tensor runs the ``*_plain`` version beside it.  The
-volumes are ``(H, W, nd)``, disparity innermost, for the kernels and the
-plain versions alike: a walk in any direction then reads nd contiguous
-values per pixel, and no transpose is needed (the TPU version transposes
-the cost volume for the horizontal pair).  :func:`sgm_fused_raw` with
-``return_volumes`` permutes them to the JAX layout ``(nd, H, W)``.
+Each is the op's one dispatch point: a CUDA tensor launches the kernel, a
+CPU tensor runs the ``*_plain`` version beside it.  The volumes are
+``(H, W, nd)``, disparity innermost, for the kernels and the plain versions
+alike: a walk in any direction then reads nd contiguous values per pixel,
+and no transpose is needed (the TPU version transposes the cost volume for
+the horizontal pair).  :func:`sgm_fused_raw` with ``return_volumes``
+permutes them to the JAX layout ``(nd, H, W)``.
 
 Storage (:func:`storage_dtypes`) is exact, not approximate: with integer
 images and integer P1/P2 every cost and excess is an integer, held as
 uint16 cost and uint8 (or int16) excess; otherwise everything is float32.
 Kernels and plain versions do the same float32 operations in the same
 order, so they agree exactly in every storage mode, and on integer input
-they equal the JAX oracle (ops/sgm.py, 4 paths) bit for bit.
+they equal the JAX oracle (ops/sgm.py, 2, 4 or 8 paths) bit for bit: every
+total, at most 8 × 65535 + 8·P2, is an integer below 2^24.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -47,8 +56,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 COST_DOWN = _build.Kernel("sgm_cost_down", [_P] * 4 + [_I] * 5 + [_F] * 3 + [_I] * 2)
+COST = _build.Kernel("sgm_cost", [_P] * 3 + [_I] * 5 + [_F] + [_I] * 2)
 AGGREGATE = _build.Kernel("sgm_aggregate", [_P] * 3 + [_I] * 3 + [_F] * 2 + [_I] * 3)
-WTA = _build.Kernel("sgm_wta", [_P] * 6 + [_I] * 8)
+DIAGONAL = _build.Kernel("sgm_aggregate_diagonal", [_P] * 2 + [_I] * 3 + [_F] * 2 + [_I] * 2)
+WTA = _build.Kernel("sgm_wta", [_P] * 8 + [_I] * 9)
+PATHS = (2, 4, 8)
 
 # storage mode of the C entry points: (cost dtype, excess dtype) → mode
 _MODES = {
@@ -111,6 +123,15 @@ def cost_and_down(
     return _launch_cost_down(lf, rf, cfg, p1, p2, cost_dtype, exc_dtype)
 
 
+def _images(lf, rf):
+    """The cost kernels' image operands: float32, contiguous, one device."""
+    if lf.dtype != torch.float32 or rf.dtype != torch.float32:
+        raise TypeError("the SGM cost kernel takes float32 images")
+    if not rf.is_cuda or rf.device != lf.device:
+        raise ValueError("left and right must be on the same CUDA device")
+    return lf.contiguous(), rf.contiguous()
+
+
 def _launch_cost_down(lf, rf, cfg, p1, p2, cost_dtype, exc_dtype, tile_rows: int = 0):
     """Launch K4.  ``tile_rows``: rows per warp strip of the integer-storage
     cost stage (0: automatic; other values are for timing the choice,
@@ -118,11 +139,7 @@ def _launch_cost_down(lf, rf, cfg, p1, p2, cost_dtype, exc_dtype, tile_rows: int
     mode = _MODES[(cost_dtype, exc_dtype)]
     if tile_rows < 0:
         raise ValueError(f"tile_rows={tile_rows} must be >= 0")
-    if lf.dtype != torch.float32 or rf.dtype != torch.float32:
-        raise TypeError("the SGM cost kernel takes float32 images")
-    if not rf.is_cuda or rf.device != lf.device:
-        raise ValueError("left and right must be on the same CUDA device")
-    lf, rf = lf.contiguous(), rf.contiguous()
+    lf, rf = _images(lf, rf)
     H, W = lf.shape
     nd = cfg.num_disparities
     cost = torch.empty((H, W, nd), dtype=cost_dtype, device=lf.device)
@@ -135,13 +152,54 @@ def _launch_cost_down(lf, rf, cfg, p1, p2, cost_dtype, exc_dtype, tile_rows: int
 
 
 def cost_and_down_plain(lf, rf, cfg, p1, p2, cost_dtype, exc_dtype):
-    """Plain version of K4: the block matcher's cost volume with the clamp,
-    disparity moved innermost, then the down walk."""
-    cost = bm_ops.sad_cost_volume(lf, rf, cfg)
-    clampv = torch.full((), sgm_ops.clamp_value(cfg, p2), device=cost.device)
-    cost = torch.where(cost >= BIG, clampv, cost).permute(1, 2, 0).contiguous()
+    """Plain version of K4: the cost volume (:func:`cost_volume_plain`), then
+    the down walk."""
+    cost = _clamped_cost(lf, rf, cfg, p2)
     exc = sgm_ops.path_excess(cost, None, p1, p2, vertical=True, reverse=False)
     return cost.to(cost_dtype), exc.to(exc_dtype)
+
+
+def cost_volume(
+    lf: torch.Tensor,
+    rf: torch.Tensor,
+    cfg: StereoBMConfig,
+    p2: float,
+    cost_dtype: torch.dtype,
+) -> torch.Tensor:
+    """K4's cost stage alone (the 2-path route walks no vertical path):
+    PREFILTERED (H, W) images → the clamped (H, W, nd) cost volume in
+    ``cost_dtype`` (uint16 for integer images only, as :func:`cost_and_down`),
+    the same volume :func:`cost_and_down` returns."""
+    if lf.shape != rf.shape or lf.dim() != 2:
+        raise ValueError(f"cost_volume wants two (H, W) images; got "
+                         f"{tuple(lf.shape)} and {tuple(rf.shape)}")
+    if not lf.is_cuda:
+        return cost_volume_plain(lf, rf, cfg, p2, cost_dtype)
+    if cost_dtype not in (torch.uint16, torch.float32):
+        raise TypeError(f"the SGM cost volume is uint16 or float32, not {cost_dtype}")
+    lf, rf = _images(lf, rf)
+    H, W = lf.shape
+    nd = cfg.num_disparities
+    cost = torch.empty((H, W, nd), dtype=cost_dtype, device=lf.device)
+    with torch.cuda.device(lf.device):
+        COST(_build.ptr(lf), _build.ptr(rf), _build.ptr(cost), H, W, nd, cfg.min_disparity,
+             cfg.block_radius, sgm_ops.clamp_value(cfg, p2),
+             0 if cost_dtype == torch.uint16 else 2, 0)
+    return cost
+
+
+def cost_volume_plain(lf, rf, cfg, p2, cost_dtype):
+    """Plain version of K4's cost stage: the cost half of
+    :func:`cost_and_down_plain`."""
+    return _clamped_cost(lf, rf, cfg, p2).to(cost_dtype)
+
+
+def _clamped_cost(lf, rf, cfg, p2):
+    """The block matcher's cost volume with the clamp, disparity moved
+    innermost: (H, W, nd) float32."""
+    cost = bm_ops.sad_cost_volume(lf, rf, cfg)
+    clampv = torch.full((), sgm_ops.clamp_value(cfg, p2), device=cost.device)
+    return torch.where(cost >= BIG, clampv, cost).permute(1, 2, 0).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -199,48 +257,101 @@ def aggregate_plain(cost, exc_in, p1, p2, vertical, reverse, exc_dtype):
 
 
 # ---------------------------------------------------------------------------
+# DG: one diagonal line pair
+# ---------------------------------------------------------------------------
+
+
+def aggregate_diagonal(
+    cost: torch.Tensor,
+    p1: float,
+    p2: float,
+    dx: int,
+    exc_dtype: torch.dtype,
+) -> torch.Tensor:
+    """The pair sum of two opposite 45° directions over a stored (H, W, nd)
+    cost volume, in ``exc_dtype``: the excess ``L − C`` of the diagonal
+    ``(dx, forward)`` of ops/sgm.py (rows top to bottom, the carry shifted
+    ``dx`` columns a row) plus that of ``(−dx, reverse)``, the same lines
+    walked bottom to top.  ``dx`` +1 pairs ↘ with ↖, −1 ↙ with ↗."""
+    if cost.dim() != 3:
+        raise ValueError(f"aggregate_diagonal wants an (H, W, nd) volume; got "
+                         f"{tuple(cost.shape)}")
+    if dx not in (1, -1):
+        raise ValueError(f"dx={dx} must be 1 or -1")
+    if not cost.is_cuda:
+        return aggregate_diagonal_plain(cost, p1, p2, dx, exc_dtype)
+    mode = _MODES[(cost.dtype, exc_dtype)]
+    H, W, nd = cost.shape
+    if nd % 16:
+        raise ValueError(f"the walk kernel takes a multiple of 16 disparities, not {nd}")
+    cost = walk_operand(cost)
+    out = torch.empty((H, W, nd), dtype=exc_dtype, device=cost.device)
+    with torch.cuda.device(cost.device):
+        DIAGONAL(_build.ptr(cost), _build.ptr(out), H, W, nd, float(p1), float(p2), int(dx),
+                 mode)
+    return out
+
+
+def aggregate_diagonal_plain(cost, p1, p2, dx, exc_dtype):
+    """Plain version of DG: the first direction's excess stored in
+    ``exc_dtype``, then the second direction's added to it, as the kernel's
+    two passes do."""
+    c = cost.float()
+    first = sgm_ops.diagonal_excess(c, None, p1, p2, dx, False).to(exc_dtype)
+    return sgm_ops.diagonal_excess(c, first.float(), p1, p2, -dx, True).to(exc_dtype)
+
+
+# ---------------------------------------------------------------------------
 # K6: winner-take-all
 # ---------------------------------------------------------------------------
 
 
 def wta(
     cost: torch.Tensor,
-    exc_v: torch.Tensor,
-    exc_h: torch.Tensor,
+    pairs: Sequence[torch.Tensor],
     cfg: StereoBMConfig,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The raw ``(disp_raw, best_cost, excl)`` maps of the aggregated total
-    ``(4·cost + exc_v) + exc_h`` (1e9 where the right window leaves the
-    image): the first minimum's disparity (min_disparity − 2 where every
+    over ``2·len(pairs)`` paths, ``n·cost`` plus the pair sums in order (1e9
+    where the right window leaves the image): ``pairs`` is ``(exc_h,)`` for
+    2 paths, ``(exc_v, exc_h)`` for 4, ``(exc_v, exc_h, exc_d1, exc_d2)``
+    for 8.  The first minimum's disparity (min_disparity − 2 where every
     candidate is masked, as on the TPU), plus the clipped parabolic step
-    when ``refine_disparity``; its cost; and the smallest cost outside
-    best ± 1 when ``uniqueness_ratio > 0`` (1e9 otherwise)."""
+    when ``refine_disparity``; its cost; and the smallest cost outside best
+    ± 1 when ``uniqueness_ratio > 0`` (1e9 otherwise)."""
     if cost.dim() != 3:
         raise ValueError(f"wta wants (H, W, nd) volumes; got {tuple(cost.shape)}")
-    _check_volume("exc_v", exc_v, cost)
-    _check_volume("exc_h", exc_h, cost)
+    paths = 2 * len(pairs)
+    if paths not in PATHS:
+        raise ValueError(f"{len(pairs)} pair volumes: 1, 2 or 4 are needed (2, 4 or 8 paths)")
+    for i, e in enumerate(pairs):
+        _check_volume(f"pair volume {i}", e, cost)
     if not cost.is_cuda:
-        return wta_plain(cost, exc_v, exc_h, cfg)
-    if exc_h.dtype != exc_v.dtype:
-        raise TypeError("exc_v and exc_h differ in dtype")
-    mode = _MODES[(cost.dtype, exc_v.dtype)]
-    cost, exc_v, exc_h = cost.contiguous(), exc_v.contiguous(), exc_h.contiguous()
+        return wta_plain(cost, pairs, cfg)
+    if len({e.dtype for e in pairs}) != 1:
+        raise TypeError("the pair volumes differ in dtype")
+    mode = _MODES[(cost.dtype, pairs[0].dtype)]
+    cost = cost.contiguous()
+    pairs = [e.contiguous() for e in pairs]
+    # the C entry's (exc_v, exc_h, exc_d1, exc_d2), null where a path count has none
+    ev, eh, ed1, ed2 = [None, *pairs, None, None] if paths == 2 else [*pairs, None, None][:4]
     H, W, nd = cost.shape
     disp_raw = torch.empty((H, W), dtype=torch.float32, device=cost.device)
     best_cost = torch.empty_like(disp_raw)
     excl = torch.empty_like(disp_raw)
     with torch.cuda.device(cost.device):
-        WTA(_build.ptr(cost), _build.ptr(exc_v), _build.ptr(exc_h),
+        WTA(_build.ptr(cost), *(_P(None) if e is None else _build.ptr(e)
+                                for e in (ev, eh, ed1, ed2)),
             _build.ptr(disp_raw), _build.ptr(best_cost), _build.ptr(excl),
             H, W, nd, cfg.min_disparity, cfg.block_radius,
-            int(cfg.refine_disparity), int(cfg.uniqueness_ratio > 0), mode)
+            int(cfg.refine_disparity), int(cfg.uniqueness_ratio > 0), paths, mode)
     return disp_raw, best_cost, excl
 
 
-def wta_plain(cost, exc_v, exc_h, cfg):
+def wta_plain(cost, pairs, cfg):
     """Plain version of K6."""
     nd = cost.shape[-1]
-    total = _masked_total(cost, exc_v, exc_h, cfg)
+    total = _masked_total(cost, pairs, cfg)
     best_cost, best = torch.min(total, dim=-1)
     none = torch.full((), -2, dtype=best.dtype, device=best.device)
     best = torch.where(best_cost < BIG, best, none)
@@ -258,12 +369,14 @@ def wta_plain(cost, exc_v, exc_h, cfg):
     return disp, best_cost, excl
 
 
-def _masked_total(cost, exc_v, exc_h, cfg) -> torch.Tensor:
-    """(H, W, nd) float32 ``(4·cost + exc_v) + exc_h``, 1e9 where the right
-    window leaves the image."""
+def _masked_total(cost, pairs, cfg) -> torch.Tensor:
+    """(H, W, nd) float32 total over ``2·len(pairs)`` paths, ``n·cost`` plus
+    each pair sum in order, 1e9 where the right window leaves the image."""
     W, nd = cost.shape[1:]
     r = cfg.block_radius
-    total = (4.0 * cost.float() + exc_v.float()) + exc_h.float()
+    total = float(2 * len(pairs)) * cost.float()
+    for e in pairs:
+        total = total + e.float()
     d = torch.arange(nd, device=cost.device)[None, :] + cfg.min_disparity
     col = torch.arange(W, device=cost.device)[:, None]
     ok = (col - d >= r) & (col - d <= W - 1 - r)                  # (W, nd)
@@ -283,19 +396,27 @@ def sgm_fused_raw(
     p2: float,
     integer_input: bool = True,
     return_volumes: bool = False,
+    num_paths: int = 4,
 ):
-    """The fused 4-path SGM on PREFILTERED images: the raw
+    """SGM over ``num_paths`` (2, 4 or 8) on PREFILTERED images: the raw
     ``(disp_raw, best_cost, excl)`` maps before the validity gates, or with
-    ``return_volumes`` the ``(cost, exc_v, exc_h)`` volumes as (nd, H, W)
-    views in their storage dtypes (stored unbiased)."""
+    ``return_volumes`` the cost and the pair volumes (:func:`wta`'s
+    ``pairs``) as (nd, H, W) views in their storage dtypes."""
+    if num_paths not in PATHS:
+        raise ValueError(f"num_paths={num_paths} must be 2, 4 or 8")
     cost_dt, exc_dt = storage_dtypes(cfg, p1, p2, integer_input)
-    cost, exc_down = cost_and_down(lf, rf, cfg, p1, p2, cost_dt, exc_dt)
-    exc_v = aggregate(cost, exc_down, p1, p2, True, True, exc_dt)      # up + down
+    if num_paths == 2:
+        cost, pairs = cost_volume(lf, rf, cfg, p2, cost_dt), []
+    else:
+        cost, exc_down = cost_and_down(lf, rf, cfg, p1, p2, cost_dt, exc_dt)
+        pairs = [aggregate(cost, exc_down, p1, p2, True, True, exc_dt)]   # up + down
     exc_lr = aggregate(cost, None, p1, p2, False, False, exc_dt)
-    exc_h = aggregate(cost, exc_lr, p1, p2, False, True, exc_dt)       # rl + lr
+    pairs.append(aggregate(cost, exc_lr, p1, p2, False, True, exc_dt))   # rl + lr
+    if num_paths == 8:
+        pairs += [aggregate_diagonal(cost, p1, p2, dx, exc_dt) for dx in (1, -1)]
     if return_volumes:
-        return tuple(v.permute(2, 0, 1) for v in (cost, exc_v, exc_h))
-    return wta(cost, exc_v, exc_h, cfg)
+        return tuple(v.permute(2, 0, 1) for v in (cost, *pairs))
+    return wta(cost, pairs, cfg)
 
 
 def compute_disparity_sgm_fused(
@@ -304,9 +425,10 @@ def compute_disparity_sgm_fused(
     cfg: StereoBMConfig = StereoBMConfig(),
     p1: float = 10.0,
     p2: float = 120.0,
+    num_paths: int = 4,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused 4-path SGM.  Same contract and numerics as
-    :func:`ops.sgm.compute_disparity_sgm` with ``num_paths=4``: (H, W) mono
+    """SGM over 2, 4 or 8 paths through the kernels.  Same contract and
+    numerics as :func:`ops.sgm.compute_disparity_sgm`: (H, W) mono
     uint8/float images → (disparity float32, valid bool)."""
     integer_input = not (left.is_floating_point() or right.is_floating_point())
     lf = bm_ops.prefilter(left, cfg)
@@ -314,13 +436,13 @@ def compute_disparity_sgm_fused(
     if cfg.lr_check:
         # the consistency check needs the whole aggregated volume: the
         # oracle's WTA tail on the assembled total, in plain PyTorch
-        cost, exc_v, exc_h = sgm_fused_raw(lf, rf, cfg, p1, p2, integer_input,
-                                           return_volumes=True)
-        total = _masked_total(*(v.permute(1, 2, 0) for v in (cost, exc_v, exc_h)),
-                              cfg).permute(2, 0, 1)
+        vols = [v.permute(1, 2, 0) for v in sgm_fused_raw(
+            lf, rf, cfg, p1, p2, integer_input, return_volumes=True, num_paths=num_paths)]
+        total = _masked_total(vols[0], vols[1:], cfg).permute(2, 0, 1)
         disp, valid = bm_ops.wta_disparity(total, lf, cfg)
         disp_r = bm_ops.right_disparity_from_cost(total, cfg)
         return bm_ops.apply_lr_check(disp, valid, disp_r, cfg)
-    disp_raw, best_cost, excl = sgm_fused_raw(lf, rf, cfg, p1, p2, integer_input)
+    disp_raw, best_cost, excl = sgm_fused_raw(lf, rf, cfg, p1, p2, integer_input,
+                                              num_paths=num_paths)
     tex = bm_ops.texture_sum(lf, cfg) if cfg.texture_threshold > 0 else None
     return fused_gates(disp_raw, best_cost, excl, cfg, tex)

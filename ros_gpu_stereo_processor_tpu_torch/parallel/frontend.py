@@ -241,9 +241,9 @@ def disparity_sgm_row_sharded(
     inner = slice(halo, halo + hb)
     for i, g in enumerate(m.indices):
         if cfg.lr_check:
-            vols = sgm_kernel.sgm_fused_raw(lf_e[i], rf_e[i], cfg, p1, p2, integer_input,
-                                            return_volumes=True)
-            total = sgm_kernel._masked_total(*(v.permute(1, 2, 0) for v in vols), cfg)
+            vols = [v.permute(1, 2, 0) for v in sgm_kernel.sgm_fused_raw(
+                lf_e[i], rf_e[i], cfg, p1, p2, integer_input, return_volumes=True)]
+            total = sgm_kernel._masked_total(vols[0], vols[1:], cfg)
             cost_agg = total.permute(2, 0, 1)[:, inner]
             disp, valid = bm_ops.wta_disparity(cost_agg, None, cfg, tex=tex[i],
                                                row_offset=g * hb, total_rows=H)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Device time of the block matcher (K2, ``csrc/stereobm.cu``), of the SGM
 cost stage and down walk (K4) and of the SGM path walks (K5, the frame's
-three calls; ``csrc/sgm.cu``) on a CUDA card, at the whole image and at the
+three calls) and of the SGM diagonal pair walk (DG, the 8-path frame's two
+calls; ``csrc/sgm.cu``) on a CUDA card, at the whole image and at the
 row-band mesh's band shapes.
 
     python3 scripts/torch_match_kernels.py [--root DIR] [--tiles 4,8,16,32]
@@ -22,8 +23,10 @@ time per call by kernel name from one ``torch.profiler`` window over
 ``--reps`` calls: ``bm_fused`` for K2, ``sgm_cost`` (the cost stage) and
 ``sgm_walk`` (the down walk) for K4, ``sgm_walk`` for each of K5's calls
 (up + down, left→right, right→left + left→right), each walk also as ns per
-step (device time over its line length); CUDA events give the wrapper's
-``ms``.
+step (device time over its line length), and, in a checkout that has it,
+``sgm_diagonal`` for each of DG's two calls (dx +1, −1; ns per step over
+twice the longest line, min(H, W) pixels walked down and back up); CUDA
+events give the wrapper's ``ms``.
 
 ``--tiles`` (this checkout only) also times the strip heights given (rows
 per block for K2, per warp for K4's integer-storage cost stage; 0 is the
@@ -122,6 +125,19 @@ def main() -> int:
             row["K5"][name] = {"device_ms": ms,
                                "step_ns": ms * 1e6 / a.shape[0 if vertical else 1]}
         row["K5_mean_device_ms"] = sum(c["device_ms"] for c in row["K5"].values()) / 3
+        if hasattr(sgm_kernel, "aggregate_diagonal"):    # a checkout with DG
+            row["DG"] = {}
+            for dx in (1, -1):
+                call = (cost, p1, p2, dx, dts[1])
+                torch.cuda.synchronize()
+                if not torch.equal(sgm_kernel.aggregate_diagonal(*call).float(),
+                                   sgm_kernel.aggregate_diagonal_plain(*call).float()):
+                    raise AssertionError(f"DG dx {dx} {shape}: differs from the plain version")
+                ms = device_ms_by_name(chip_smoke, torch,
+                                       lambda: sgm_kernel.aggregate_diagonal(*call),
+                                       args.reps, ["sgm_diagonal"])["sgm_diagonal"]
+                row["DG"][f"dx {dx:+d}"] = {"device_ms": ms,
+                                            "step_ns": ms * 1e6 / (2 * min(a.shape))}
         print(json.dumps(row), flush=True)
 
     tiles = [int(t) for t in args.tiles.split(",") if t.strip()]

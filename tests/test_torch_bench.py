@@ -194,6 +194,8 @@ BOUNDS = {
            "0.0506"),
     "K6": (rl.sgm_fused_model(480, 752, 128, 2, 1)["K6"],
            (4 * _VOL + 12 * 480 * 752) / 3.35e9, "0.0565"),
+    "DG": (rl.sgm_fused_model(480, 752, 128, 2, 1, paths=8)["DG"], 3 * _VOL / 3.35e9,
+           "0.0414"),
     "K7": (rl.maxprop_model(120, 752, 9), 120 * 752 * 10 / 3.35e9, "0.00027"),
     "BL": (rl.maxprop_model(120, 752, 2), 120 * 752 * 10 / 3.35e9, "0.00027"),
 }
@@ -202,7 +204,7 @@ BOUNDS = {
 @pytest.mark.parametrize("kernel", sorted(BOUNDS))
 def test_roofline_gives_the_perf_bounds(kernel):
     model, formula_ms, column = BOUNDS[kernel]
-    ms, by = rl.bound(model["bytes"], model["ops"])
+    ms, by = rl.model_bound(model)
     assert ms == pytest.approx(formula_ms, rel=1e-3)
     digits = len(column.lstrip("0."))             # the column's significant figures
     assert float(f"{ms:.{digits}g}") == float(column)
@@ -215,6 +217,27 @@ def test_sgm_model_sums_the_frames_kernels():
     m = rl.sgm_fused_model(480, 752, 64)
     assert m["bytes"] == m["K4"]["bytes"] + 3 * m["K5"]["bytes"] + m["K6"]["bytes"]
     assert m["ops"] == m["K4"]["ops"] + 3 * m["K5"]["ops"] + m["K6"]["ops"]
+
+
+@pytest.mark.parametrize("paths,calls", [(2, {"K4 cost": 1, "K5": 2, "K6": 1}),
+                                         (8, {"K4": 1, "K5": 3, "DG": 2, "K6": 1})])
+@pytest.mark.parametrize("cost_bytes,exc_bytes", [(2, 1), (4, 4)])
+def test_sgm_model_by_paths(paths, calls, cost_bytes, exc_bytes):
+    """The 2- and 8-path frames' sums over their calls; the walks' operations
+    are int32 on integer storage (2-byte cost) and float32 otherwise; K6
+    reads one pair volume per two paths."""
+    m = rl.sgm_fused_model(480, 752, 64, cost_bytes, exc_bytes, paths=paths)
+    assert m["calls"] == calls
+    for key in ("bytes", "ops", "int_ops"):
+        assert m[key] == sum(n * m[k][key] for k, n in calls.items())
+    V = 480 * 752 * 64
+    walk = "int_ops" if cost_bytes == 2 else "ops"
+    assert m["K5"][walk] == 10 * V and m["DG"][walk] == 20 * V
+    assert m["K6"]["ops"] == (5 + paths // 2) * V and m["K6"]["int_ops"] == 0
+    assert m["K6"]["bytes"] == V * (cost_bytes + paths // 2 * exc_bytes) + 12 * 480 * 752
+    ms, by = rl.model_bound(m["DG"])
+    assert ms == max(m["DG"]["bytes"] / 3.35e9, m["DG"]["ops"] / 67e9,
+                     m["DG"]["int_ops"] / rl.H100_SXM["int32_ops_per_ms"])
 
 
 def _lines(capsys):

@@ -297,8 +297,8 @@ def test_sgm_kernels(dev, shape, nd, p1, p2, integer):
 
     exc_h = sgm_kernel.aggregate(cost, down, p1, p2, False, True, exc_dt)
     for c in (cfg, cfg.replace(refine_disparity=False, uniqueness_ratio=0, min_disparity=3)):
-        for got, want in zip(sgm_kernel.wta(cost, down, exc_h, c),
-                             sgm_kernel.wta_plain(cost, down, exc_h, c)):
+        for got, want in zip(sgm_kernel.wta(cost, (down, exc_h), c),
+                             sgm_kernel.wta_plain(cost, (down, exc_h), c)):
             _exact(got, want)
     assert sgm_kernel.WTA.launches == 2
 
@@ -427,21 +427,107 @@ def test_sgm_cost_block_sizes(dev, nd, block):
         _exact_volume(g, w)
 
 
+# launches a frame by path count: (K4's cost stage alone, K4, K5, DG)
+FRAME_LAUNCHES = {2: (1, 0, 2, 0), 4: (0, 1, 3, 0), 8: (0, 1, 3, 2)}
+
+
+@pytest.mark.parametrize("num_paths", [4, 2, 8])
 @pytest.mark.parametrize("kw", [dict(), dict(lr_check=True), dict(min_disparity=2)])
-def test_sgm_fused_on_card_equals_oracle(dev, kw):
-    """Every frame's launches, and the fused path (kernels) against the plain
-    recurrences of ops/sgm.py, both on the card: exact on uint8 input."""
+def test_sgm_fused_on_card_equals_oracle(dev, kw, num_paths):
+    """Every frame's launches (no K6 with ``lr_check``), and the SGM frame
+    through the kernels against the plain recurrences of ops/sgm.py, both
+    on the card, over 2, 4 and 8 paths: exact on uint8 input."""
     left, right, _ = synthetic_stereo_pair(67, 301, max_disparity=40, seed=4)
     cfg = StereoBMConfig(num_disparities=48, block_size=9, texture_threshold=5, **kw)
     lt, rt = torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev)
     _build.reset_launch_counts()
-    d, v = sgm_kernel.compute_disparity_sgm_fused(lt, rt, cfg)
-    launches = (sgm_kernel.COST_DOWN.launches, sgm_kernel.AGGREGATE.launches,
-                sgm_kernel.WTA.launches)
-    assert launches == ((1, 3, 0) if cfg.lr_check else (1, 3, 1))
-    dp, vp = sgm.compute_disparity_sgm(lt, rt, cfg)
+    d, v = sgm_kernel.compute_disparity_sgm_fused(lt, rt, cfg, num_paths=num_paths)
+    launches = tuple(k.launches for k in (sgm_kernel.COST, sgm_kernel.COST_DOWN,
+                                          sgm_kernel.AGGREGATE, sgm_kernel.DIAGONAL,
+                                          sgm_kernel.WTA))
+    assert launches == FRAME_LAUNCHES[num_paths] + (0 if cfg.lr_check else 1,)
+    dp, vp = sgm.compute_disparity_sgm(lt, rt, cfg, num_paths=num_paths)
     _exact(v, vp)
     _exact(d, dp)
+
+
+# the diagonal, cost-only and WTA cases: every storage mode, every width of
+# a lane's share up to 8 (nd 16, 48: disparities past nd, 128, 256), lines
+# of 1 and 2 pixels and H ≠ W both ways, a width no block of columns
+# divides, and the whole image
+PATH_SHAPES = [(1, 301), (2, 17), (17, 2), (37, 301), (480, 752)]
+PATH_NDS = [16, 48, 128, 256]
+
+
+@pytest.mark.parametrize("mode", list(WALK_MODES))
+@pytest.mark.parametrize("nd", PATH_NDS)
+@pytest.mark.parametrize("shape", PATH_SHAPES)
+def test_diagonal_kernel(dev, shape, nd, mode):
+    """DG, both line pairs (dx +1 and −1), against its plain version, exact,
+    one launch per call; an nd that is not a multiple of 16 raises before
+    any launch."""
+    cost, _, p1, p2, exc_dt = _walk_volumes(shape, nd, mode, seed=nd + 7 * shape[0])
+    cost = cost.to(dev)
+    _build.reset_launch_counts()
+    for dx in (1, -1):
+        _exact_volume(sgm_kernel.aggregate_diagonal(cost, p1, p2, dx, exc_dt),
+                      sgm_kernel.aggregate_diagonal_plain(cost, p1, p2, dx, exc_dt))
+    assert sgm_kernel.DIAGONAL.launches == 2
+    with pytest.raises(ValueError, match="multiple of 16"):
+        sgm_kernel.aggregate_diagonal(cost[..., :8], p1, p2, 1, exc_dt)
+    assert sgm_kernel.DIAGONAL.launches == 2
+
+
+# storage mode → (P1, P2, integer images) of the cost-only entry's cases
+COST_MODES = {"u16_u8": (10.0, 120.0, True), "u16_i16": (20.0, 600.0, True),
+              "f32": (7.5, 93.25, False)}
+
+
+@pytest.mark.parametrize("mode", list(COST_MODES))
+@pytest.mark.parametrize("nd", PATH_NDS)
+@pytest.mark.parametrize("shape", PATH_SHAPES)
+def test_sgm_cost_only_kernel(dev, shape, nd, mode):
+    """K4's cost stage alone (the 2-path route) against K4's cost volume on
+    the card and against its plain version: exact, one launch per call."""
+    p1, p2, integer = COST_MODES[mode]
+    left, right, _ = synthetic_stereo_pair(*shape, max_disparity=min(nd, 40) - 4, seed=5)
+    if not integer:
+        left, right = left.astype(np.float32) + 0.25, right.astype(np.float32) + 0.25
+    cfg = StereoBMConfig(num_disparities=nd, block_size=15, min_disparity=-1)
+    lf = stereobm.prefilter(torch.from_numpy(left).to(dev), cfg)
+    rf = stereobm.prefilter(torch.from_numpy(right).to(dev), cfg)
+    cost_dt, exc_dt = sgm_kernel.storage_dtypes(cfg, p1, p2, integer)
+    _build.reset_launch_counts()
+    got = sgm_kernel.cost_volume(lf, rf, cfg, p2, cost_dt)
+    assert sgm_kernel.COST.launches == 1
+    _exact_volume(got, sgm_kernel.cost_and_down(lf, rf, cfg, p1, p2, cost_dt, exc_dt)[0])
+    _exact_volume(got, sgm_kernel.cost_volume_plain(lf, rf, cfg, p2, cost_dt))
+
+
+@pytest.mark.parametrize("mode", list(WALK_MODES))
+@pytest.mark.parametrize("nd", PATH_NDS)
+@pytest.mark.parametrize("shape", PATH_SHAPES)
+def test_wta_kernel_paths(dev, shape, nd, mode):
+    """K6 over 2, 4 and 8 paths against its plain version on random cost and
+    pair volumes at their storage limits (pair sums up to 2·P2), with and
+    without the subpixel step and uniqueness, exact, one launch per call."""
+    cost, exc, p1, p2, exc_dt = _walk_volumes(shape, nd, mode, seed=nd + 3 * shape[1])
+    rng = np.random.default_rng(nd)
+    cost = cost.to(dev)
+    pairs = [(exc.float() + exc.float().flip(0 if shape[0] > 1 else 1)).to(exc_dt).to(dev)]
+    for _ in range(3):
+        pairs.append(torch.from_numpy(rng.permutation(pairs[0].cpu().numpy().ravel())
+                                      .reshape(pairs[0].shape)).to(dev))
+    cfg = StereoBMConfig(num_disparities=nd, block_size=5, refine_disparity=True,
+                         uniqueness_ratio=10)
+    _build.reset_launch_counts()
+    calls = 0
+    for num_paths, use in ((2, pairs[:1]), (4, pairs[:2]), (8, pairs)):
+        for c in (cfg, cfg.replace(refine_disparity=False, uniqueness_ratio=0, min_disparity=3)):
+            for got, want in zip(sgm_kernel.wta(cost, use, c), sgm_kernel.wta_plain(cost, use, c)):
+                _exact(got, want)
+            calls += 1
+    assert sgm_kernel.WTA.launches == calls
 
 
 def _maxprop_inputs(shape, dev, seed=3):

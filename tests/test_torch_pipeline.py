@@ -174,8 +174,10 @@ def test_batch_timed_and_in_flight(jmodel):
 @pytest.mark.parametrize("kw", [
     dict(sgm_paths=4),                   # the fused path: K4–K6 plain versions
     dict(sgm_paths=4, lr_check=True),
-    dict(sgm_paths=8),                   # the plain recurrences of ops/sgm.py
-], ids=["4paths", "4paths_lr_check", "8paths"])
+    dict(sgm_paths=8),                   # K4, K5, DG, K6 plain versions
+    dict(sgm_paths=2),                   # K4's cost stage, K5, K6 plain versions
+    dict(sgm_paths=8, lr_check=True),
+], ids=["4paths", "4paths_lr_check", "8paths", "2paths", "8paths_lr_check"])
 def test_sgm_pipeline_matches_jax(jmodel, kw):
     cfg = JCFG.replace(stereobm=J.StereoBMConfig(
         num_disparities=32, block_size=9, algorithm="sgm", **kw))

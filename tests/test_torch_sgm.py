@@ -4,10 +4,14 @@ package's, on the same numpy inputs made from a seed.
   * ``ops/sgm.py`` (the plain recurrences, 2, 4 and 8 paths) against the
     JAX jnp oracle ``ops/sgm.py``;
   * ``ops/sgm_kernel.py`` on CPU tensors (so the plain versions of kernels
-    K4–K6) against the jnp oracle, and against the JAX fused SGM
+    K4–K6 and DG) against the jnp oracle, and against the JAX fused SGM
     (``ops/sgm_pallas.py``) run in the Pallas interpreter, as
     tests/test_sgm_pallas.py runs it: the stored volumes, the raw
-    ``(disp_raw, best_cost, excl)`` maps and the gated output.
+    ``(disp_raw, best_cost, excl)`` maps and the gated output; the 2- and
+    8-path route (K4's cost stage or K4, K5, DG, K6) against the oracle's
+    ``compute_disparity_sgm(num_paths=...)``, DG's plain version against the
+    oracle's diagonal scans, and K6's plain version over 2, 4 and 8 paths
+    against the oracle's WTA.
 
 Tolerances: exact on uint8 input with integer penalties (every cost,
 excess and total is an integer below 2^24, which float32 holds exactly in
@@ -36,6 +40,7 @@ from ros_gpu_stereo_processor_tpu_torch.ops import _build
 from ros_gpu_stereo_processor_tpu_torch.ops import sgm as tsgm
 from ros_gpu_stereo_processor_tpu_torch.ops import sgm_kernel
 from ros_gpu_stereo_processor_tpu_torch.ops import stereobm as tbm
+from ros_gpu_stereo_processor_tpu_torch.ops import stereobm_kernel
 from ros_gpu_stereo_processor_tpu_torch.utils.io import synthetic_stereo_pair
 
 torch.set_num_threads(1)
@@ -244,3 +249,107 @@ def test_right_disparity_and_lr_check_on_aggregated_volume():
             tbm.left_right_check(_t(dl), dr, cfg, max_diff).numpy(),
             np.asarray(jbm.left_right_check(jnp.asarray(dl), jnp.asarray(dr.numpy()),
                                             jcfg, max_diff)))
+
+
+# shapes of the diagonal tests: one row, one column, and H ≠ W both ways
+DIAGONAL_SHAPES = [(1, 9), (7, 1), (5, 3), (3, 5), (6, 11)]
+
+
+@pytest.mark.parametrize("mode", list(WALK_MODES))
+@pytest.mark.parametrize("shape", DIAGONAL_SHAPES)
+def test_diagonal_plain_matches_oracle(shape, mode):
+    """DG's plain version (what the diagonal kernel is held to on the card)
+    against the JAX oracle's ``_aggregate_diagonal`` minus the cost: each of
+    the four directions alone, plus an incoming excess, and the two pair
+    sums the kernel writes, exact.  Costs reach the clamp value; float
+    storage takes quarter values, so L − C is exact."""
+    cost_dt, exc_dt, p1, p2 = WALK_MODES[mode]
+    clampv = 2 * p2 + 255 * 15 ** 2
+    rng = np.random.default_rng(shape[0] * 100 + shape[1])
+    for nd in (16, 48):
+        size = (*shape, nd)
+        cost = rng.integers(0, 4 * int(p2), size).astype(np.float32)
+        cost[rng.random(size) < 0.1] = clampv
+        exc = rng.integers(0, int(p2) + 1, size).astype(np.float32)
+        if cost_dt == torch.float32:
+            cost, exc = cost / 4, exc / 4
+        want = {(dx, rev): np.asarray(jsgm._aggregate_diagonal(jnp.asarray(cost), dx, rev,
+                                                               p1, p2)) - cost
+                for dx in (1, -1) for rev in (False, True)}
+        tcost = torch.from_numpy(cost)
+        for (dx, rev), w in want.items():
+            for exc_in in (None, exc):
+                got = tsgm.diagonal_excess(tcost, None if exc_in is None
+                                           else torch.from_numpy(exc_in), p1, p2, dx, rev)
+                np.testing.assert_array_equal(got.numpy(), w if exc_in is None else w + exc_in)
+        for dx in (1, -1):
+            got = sgm_kernel.aggregate_diagonal(tcost.to(cost_dt), p1, p2, dx, exc_dt)
+            assert got.dtype == exc_dt and got.shape == size
+            np.testing.assert_array_equal(got.float().numpy(),
+                                          want[(dx, False)] + want[(-dx, True)])
+
+
+# (case, atol): the cases of the 4-path tests above, for 2 and 8 paths
+PATH_CASES = {
+    "basic": (CONFIGS["basic"], 10.0, 120.0, False, 0.0),
+    "refine_uniqueness": (CONFIGS["refine_uniqueness"], 10.0, 120.0, False, 0.0),
+    "min_disparity": (CONFIGS["min_disparity"], 10.0, 120.0, False, 0.0),
+    "lr_check": (CONFIGS["lr_check"], 10.0, 120.0, False, 0.0),
+    "int16_excess": (BASE, 20.0, 600.0, False, 0.0),
+    "float_images": (BASE, 10.0, 120.0, True, 1e-3),           # float32 storage
+    "float_images_lr_check": (CONFIGS["lr_check"], 10.0, 120.0, True, 1e-3),
+    "fractional_penalties": (BASE, 7.5, 93.25, False, 1e-3),
+}
+
+
+@pytest.mark.parametrize("case", list(PATH_CASES))
+@pytest.mark.parametrize("num_paths", [2, 8])
+def test_sgm_paths_route_matches_oracle(num_paths, case):
+    """The 2- and 8-path route on the CPU (the plain versions of K4's cost
+    stage or K4, K5, DG and K6) against the jnp oracle's
+    ``compute_disparity_sgm(num_paths=...)``: exact on uint8 input with
+    integer penalties, atol 1e-3 in float32 storage (the oracle sums the
+    paths' L in another order); launches nothing."""
+    kw, p1, p2, float_images, atol = PATH_CASES[case]
+    left, right = _pair()
+    if float_images:
+        left, right = left.astype(np.float32) + 0.25, right.astype(np.float32) + 0.25
+    jcfg, cfg = _cfgs(**kw)
+    want = jsgm.compute_disparity_sgm(jnp.asarray(left), jnp.asarray(right), jcfg,
+                                      p1=p1, p2=p2, num_paths=num_paths)
+    before = {k: v.launches for k, v in _build.kernels().items()}
+    got = sgm_kernel.compute_disparity_sgm_fused(_t(left), _t(right), cfg, p1, p2,
+                                                 num_paths=num_paths)
+    assert {k: v.launches for k, v in _build.kernels().items()} == before
+    _assert_equal(got, want, atol)
+    assert 0.5 < np.asarray(want[1]).mean()
+
+
+@pytest.mark.parametrize("cfg_name", ["basic", "refine_uniqueness", "min_disparity"])
+@pytest.mark.parametrize("mode", list(WALK_MODES))
+@pytest.mark.parametrize("num_paths", [2, 4, 8])
+def test_wta_plain_paths_match_oracle(num_paths, mode, cfg_name):
+    """K6's plain version on a total over 2, 4 or 8 paths (random cost and
+    pair volumes within their storage ranges, ties included), gated, against
+    the JAX oracle's WTA (``wta_disparity``) on the same total assembled in
+    numpy, masked where the right window leaves the image: exact."""
+    cost_dt, exc_dt, p1, p2 = WALK_MODES[mode]
+    jcfg, cfg = _cfgs(**dict(CONFIGS[cfg_name], texture_threshold=0))
+    H, W, nd = 9, 40, cfg.num_disparities
+    rng = np.random.default_rng(num_paths * 10 + len(mode))
+    cost = rng.integers(0, 12, (H, W, nd)).astype(np.float32) * 10
+    pairs = [rng.integers(0, 2 * int(p2) + 1, (H, W, nd)).astype(np.float32)
+             for _ in range(num_paths // 2)]
+    if cost_dt == torch.float32:
+        cost, pairs = cost / 4, [e / 4 for e in pairs]
+    total = np.float32(num_paths) * cost
+    for e in pairs:
+        total = total + e
+    d = np.arange(nd)[None, :] + cfg.min_disparity
+    x = np.arange(W)[:, None]
+    ok = (x - d >= cfg.block_radius) & (x - d <= W - 1 - cfg.block_radius)
+    total = np.where(ok[None], total, np.float32(1e9)).astype(np.float32)
+    want = jbm.wta_disparity(jnp.asarray(total.transpose(2, 0, 1)), None, jcfg)
+    raw = sgm_kernel.wta(torch.from_numpy(cost).to(cost_dt),
+                         [torch.from_numpy(e).to(exc_dt) for e in pairs], cfg)
+    _assert_equal(stereobm_kernel.fused_gates(*raw, cfg, None), want)
