@@ -27,7 +27,8 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      cost stage alone, the 2-path route's, against K4's cost volume), K5
      path aggregation (the frame's three calls, each also timed apart with
      its ns per step), DG the diagonal pair walk (the 8-path frame's two
-     calls, each timed apart with its ns per step) and K6 winner-take-all
+     calls, each timed apart with its ns per step over ``steps``, the
+     call's longest chain) and K6 winner-take-all
      over 2, 4 and 8 paths at 64 and 128
      disparities with quantised storage and at 64 with float32 storage (P1
      7.5, P2 93.25), all exact; K7 max-propagation on one band of the
@@ -303,14 +304,14 @@ SOURCES = {   # key: (C entry point, CUDA source, TPU kernel it replaces)
     "K3": ("speckle_labels", "csrc/speckle.cu", "ops/speckle_pallas.py:104"),
     "K4": ("sgm_cost_down", "csrc/sgm.cu", "ops/sgm_pallas.py:191"),
     "K5": ("sgm_aggregate", "csrc/sgm.cu", "ops/sgm_pallas.py:349"),
-    "K6": ("sgm_wta", "csrc/sgm.cu", "ops/sgm_pallas.py:432"),
+    "K6": ("sgm_wta", "csrc/sgm_wta.cu", "ops/sgm_pallas.py:432"),
     "K7": ("speckle_maxprop", "csrc/speckle.cu", "ops/speckle_pallas.py:164"),
     # the band-local label rounds of the mesh speckle filter: no TPU kernel,
     # they replace the JAX band's jnp scans
     "BL": ("speckle_band_labels", "csrc/speckle.cu", "parallel/frontend.py:585"),
     # the diagonal pair walk of 8-path SGM: no TPU kernel, it replaces the
     # JAX pipeline's jnp diagonal scans
-    "DG": ("sgm_aggregate_diagonal", "csrc/sgm.cu", "ops/sgm.py:75"),
+    "DG": ("sgm_aggregate_diagonal", "csrc/sgm_diagonal.cu", "ops/sgm.py:75"),
 }
 
 
@@ -619,7 +620,8 @@ def check_sgm_kernels(torch, sgm_kernel, stereobm, rl, rect, cfg, p1, p2):
                     lambda: sgm_kernel.wta_plain(cost, pairs[4], cfg), 1),
     }
     # each walk's device time and time per step (one pixel of its lines; a
-    # DG call walks its longest lines, min(H, W) pixels, down and back up)
+    # DG call's longest chain is sgm_kernel.diagonal_steps: min(H, W) steps
+    # where both directions walk at once, twice that down and back up)
     times["K4"]["down_walk_step_ns"] = times["K4"]["sgm_walk_device_ms"] * 1e6 / H
     times["K4"]["cost_only"] = timed(
         torch, lambda: sgm_kernel.cost_volume(lf, rf, cfg, p2, cdt),
@@ -634,11 +636,11 @@ def check_sgm_kernels(torch, sgm_kernel, stereobm, rl, rect, cfg, p1, p2):
         times["K5"]["calls"][name] = {"device_ms": ms,
                                       "step_ns": ms * 1e6 / (H if vertical else W)}
     times["DG"]["calls"] = {}
+    times["DG"]["steps"] = steps = sgm_kernel.diagonal_steps(H, W, cfg.num_disparities, cdt, edt)
     for dx in (1, -1):
         ms, _ = device_cost(torch, lambda: sgm_kernel.aggregate_diagonal(cost, p1, p2, dx, edt),
                             KERNEL_REPS, launches=1)
-        times["DG"]["calls"][f"dx {dx:+d}"] = {"device_ms": ms,
-                                               "step_ns": ms * 1e6 / (2 * min(H, W))}
+        times["DG"]["calls"][f"dx {dx:+d}"] = {"device_ms": ms, "step_ns": ms * 1e6 / steps}
     times["K6"]["paths"] = {}
     for n, pv in pairs.items():
         ms, _ = device_cost(torch, lambda: sgm_kernel.wta(cost, pv, cfg), KERNEL_REPS,

@@ -1,4 +1,5 @@
-"""SGM over 2, 4 or 8 paths on the card: the wrappers of ``csrc/sgm.cu``.
+"""SGM over 2, 4 or 8 paths on the card: the wrappers of ``csrc/sgm.cu``
+(K4, K5), ``csrc/sgm_diagonal.cu`` (DG) and ``csrc/sgm_wta.cu`` (K6).
 
 The port of ``ros_gpu_stereo_processor_tpu/ops/sgm_pallas.py`` and its
 three TPU kernels, and of the jnp diagonal scans of ``ops/sgm.py``:
@@ -10,7 +11,9 @@ three TPU kernels, and of the jnp diagonal scans of ``ops/sgm.py``:
     reverse; given the opposite direction's excess it writes the pair sum;
   * DG :func:`aggregate_diagonal` (``ops/sgm.py::_aggregate_diagonal``, no
     TPU kernel): one diagonal line pair, both directions in one launch,
-    written as the pair sum;
+    written as the pair sum: up to 256 disparities both directions at once,
+    half a warp each, beyond that one warp down and back up (the longest
+    chain :func:`diagonal_steps`);
   * K6 :func:`wta` (``_wta``): winner-take-all, subpixel step and the
     uniqueness sweep over the total of 2, 4 or 8 paths, ``n·cost`` plus the
     pair sums in order: ``2·cost + exc_h``, ``(4·cost + exc_v) + exc_h``,
@@ -290,6 +293,28 @@ def aggregate_diagonal(
         DIAGONAL(_build.ptr(cost), _build.ptr(out), H, W, nd, float(p1), float(p2), int(dx),
                  mode)
     return out
+
+
+def diagonal_steps(H: int, W: int, nd: int, cost_dtype: torch.dtype,
+                   exc_dtype: torch.dtype) -> int:
+    """The longest chain of walk steps in one DG call on an (H, W, nd)
+    volume in this storage: min(H, W) where both directions walk at once,
+    2·min(H, W) where one warp walks its line down and back up (the walk
+    :func:`diagonal_depth` reports as 0).  Asks the built library."""
+    return (1 if diagonal_depth(nd, cost_dtype, exc_dtype) else 2) * min(H, W)
+
+
+def diagonal_depth(nd: int, cost_dtype: torch.dtype, exc_dtype: torch.dtype) -> int:
+    """Pixels each half of DG's pair walk stages ahead at ``nd`` disparities
+    in this storage: its ring's depth D, and the second visits nearest the
+    crossing that its shared-memory handoff serves (0 where nd takes the
+    two-pass walk).  Asks the built library (``nvcc`` needed)."""
+    fn = _build.library().sgm_diagonal_depth
+    fn.argtypes, fn.restype = [_I, _I], _I
+    depth = fn(nd, _MODES[(cost_dtype, exc_dtype)])
+    if depth < 0:
+        raise ValueError(f"no diagonal walk takes {nd} disparities")
+    return depth
 
 
 def aggregate_diagonal_plain(cost, p1, p2, dx, exc_dtype):

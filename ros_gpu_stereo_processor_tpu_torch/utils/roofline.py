@@ -94,7 +94,7 @@ def maxprop_model(H_b: int, W: int, rounds: int) -> Dict:
 
 def sgm_fused_model(H: int, W: int, nd: int, cost_bytes: int = 2,
                     exc_bytes: int = 1, paths: int = 4) -> Dict:
-    """The SGM kernels, ``csrc/sgm.cu``, on (H, W, nd) volumes (V = H·W·nd
+    """The SGM kernels, ``csrc/sgm*.cu``, on (H, W, nd) volumes (V = H·W·nd
     cells) stored at ``cost_bytes`` (cost) and ``exc_bytes`` (excess) per
     cell (``ops/sgm_kernel.py::storage_dtypes``); a walk's operations are
     int32 on integer storage (2-byte cost), float32 otherwise:

@@ -459,13 +459,21 @@ PATH_SHAPES = [(1, 301), (2, 17), (17, 2), (37, 301), (480, 752)]
 PATH_NDS = [16, 48, 128, 256]
 
 
+# DG's: the pair walk's (nd ≤ 256: 64 besides PATH_NDS) and the two-pass
+# walk's (272, 512, 1024)
+DIAG_NDS = PATH_NDS + [64, 272, 512, 1024]
+
+
 @pytest.mark.parametrize("mode", list(WALK_MODES))
-@pytest.mark.parametrize("nd", PATH_NDS)
+@pytest.mark.parametrize("nd", DIAG_NDS)
 @pytest.mark.parametrize("shape", PATH_SHAPES)
 def test_diagonal_kernel(dev, shape, nd, mode):
     """DG, both line pairs (dx +1 and −1), against its plain version, exact,
-    one launch per call; an nd that is not a multiple of 16 raises before
-    any launch."""
+    one launch per call: the pair walk up to 256 disparities, the two-pass
+    walk beyond (the full image at 512 and 1024 disparities is left to 198
+    rows); an nd that is not a multiple of 16 raises before any launch."""
+    if nd >= 512 and shape == (480, 752):
+        shape = (198, 752)
     cost, _, p1, p2, exc_dt = _walk_volumes(shape, nd, mode, seed=nd + 7 * shape[0])
     cost = cost.to(dev)
     _build.reset_launch_counts()
@@ -476,6 +484,36 @@ def test_diagonal_kernel(dev, shape, nd, mode):
     with pytest.raises(ValueError, match="multiple of 16"):
         sgm_kernel.aggregate_diagonal(cost[..., :8], p1, p2, 1, exc_dt)
     assert sgm_kernel.DIAGONAL.launches == 2
+
+
+@pytest.mark.parametrize("mode", list(WALK_MODES))
+@pytest.mark.parametrize("nd", [16, 48, 64, 128, 256])
+def test_diagonal_pair_crossings(dev, nd, mode):
+    """The pair walk's halves cross in and around its handoff window: the
+    longest lines 1, 2 and 3 pixels long, and odd and even lengths around D,
+    D + 1, 2D − 1, 2D, 2D + 1 and 2D + 3 (D: the pixels each half stages
+    ahead at this nd and storage, and the second visits its handoff serves),
+    on shapes wider than tall and taller than wide; both dx against the
+    plain version, exact, one launch per call."""
+    cost_dt, exc_dt = WALK_MODES[mode][:2]
+    D = sgm_kernel.diagonal_depth(nd, cost_dt, exc_dt)
+    assert 2 <= D <= 32
+    lengths = {1, 2, 3} | {n + o for n in (D, D + 1, 2 * D - 1, 2 * D, 2 * D + 1, 2 * D + 3)
+                           for o in (-1, 0, 1)}
+    _build.reset_launch_counts()
+    calls = 0
+    for n in sorted(lengths):
+        for shape in ((n, n + 5), (n + 4, n)):
+            cost, _, p1, p2, _ = _walk_volumes(shape, nd, mode, seed=nd + n)
+            cost = cost.to(dev)
+            for dx in (1, -1):
+                _exact_volume(sgm_kernel.aggregate_diagonal(cost, p1, p2, dx, exc_dt),
+                              sgm_kernel.aggregate_diagonal_plain(cost, p1, p2, dx, exc_dt))
+                calls += 1
+    assert sgm_kernel.DIAGONAL.launches == calls
+    assert sgm_kernel.diagonal_depth(272, cost_dt, exc_dt) == 0   # the two-pass walk
+    assert sgm_kernel.diagonal_steps(480, 752, nd, cost_dt, exc_dt) == 480
+    assert sgm_kernel.diagonal_steps(480, 752, 272, cost_dt, exc_dt) == 960
 
 
 # storage mode → (P1, P2, integer images) of the cost-only entry's cases

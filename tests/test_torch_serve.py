@@ -183,8 +183,10 @@ def test_serve_overlapped_throughput(tmp_path):
     """The overlapped path (uploader thread + sender workers) sustains about
     the synchronous process-then-fetch loop on the same ring: the overlap
     machinery may not cost throughput (a loose 2× bound, as
-    tests/test_serve.py, against thread-scheduling noise)."""
-    N = 30
+    tests/test_serve.py).  The two sides run in turns, REPEATS times each,
+    and their minima are compared, so that one busy moment of a loaded
+    host does not decide the result."""
+    N, REPEATS = 30, 3
     watch, out, daemon = _mk(tmp_path, save_outputs=False, queue_size=N + 2,
                              **_calibs(tmp_path))
     left, right, _ = synthetic_stereo_pair(H, W, max_disparity=12, seed=3)
@@ -197,18 +199,21 @@ def test_serve_overlapped_throughput(tmp_path):
     feed(0.0)                 # warm-up
     daemon._process_ready()
     daemon.drain()
-    t0 = time.perf_counter()
-    feed(100.0)
-    daemon._process_ready()
-    daemon.drain()
-    dt_serve = time.perf_counter() - t0
-    assert daemon.n_frames >= 2 * N
-    feed(200.0)
-    t0 = time.perf_counter()
-    for l_d, r_d, stamp, seq in daemon.ingest.frames(timeout=0):
-        daemon.pipe.process(l_d, r_d, daemon.outputs, encoding=daemon.encoding).fetch()
-    dt_sync = time.perf_counter() - t0
-    assert dt_serve < 2.0 * dt_sync, (dt_serve, dt_sync)
+    dt_serve, dt_sync = [], []
+    for r in range(REPEATS):
+        base = 100.0 * (2 * r + 1)
+        t0 = time.perf_counter()
+        feed(base)
+        daemon._process_ready()
+        daemon.drain()
+        dt_serve.append(time.perf_counter() - t0)
+        feed(base + 100.0)
+        t0 = time.perf_counter()
+        for l_d, r_d, stamp, seq in daemon.ingest.frames(timeout=0):
+            daemon.pipe.process(l_d, r_d, daemon.outputs, encoding=daemon.encoding).fetch()
+        dt_sync.append(time.perf_counter() - t0)
+    assert daemon.n_frames >= (REPEATS + 1) * N
+    assert min(dt_serve) < 2.0 * min(dt_sync), (dt_serve, dt_sync)
     line = daemon._timing_line()
     assert "fps=" in line and "p50=" in line
     t = daemon.timing()
