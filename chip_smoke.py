@@ -122,7 +122,10 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      frame) and on a (kf, rows) 2 × 4 mesh (the pipeline by 4 row bands:
      K1, K2 and K7 four times a frame, never K3): ATE under 0.1 m after
      ``optimize_global``, every frame's position within 1e-4 m of the
-     single-device run, BA ms per keyframe.  Then the hard phases:
+     single-device run, BA ms per keyframe; the sharded BA on those
+     one-card ``kf`` lines is captured per window shape: one graph per
+     shape, every later solve a replay, each solve equal to its eager solve
+     bit for bit.  Then the hard phases:
        * the 6-dof homography sequence of tests/test_vo_6dof.py (400×300,
          fx 350, a plane at 2.5 m, rendered with numpy): VO over 6 frames
          and ``StereoSlam`` (BM at 16 disparities, speckle off: K1 and K2
@@ -158,10 +161,16 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      K2, K7 and band label rounds launched; then ``measure_scaling`` on 1,
      2 and 4 entries of ``cuda:0`` (row bands with speckle, and slabs;
      ``wall_overhead_vs_1dev`` is the number to read there, since entries
-     on one card add no hardware) and ``dryrun_multichip(4, ["cuda:0"] *
-     4)`` (the full 752×480 pipeline by bands with speckle and bilateral,
-     the band matcher, SGM, remap and slabs against their twins, the
-     sharded BA and SLAM on a (kf, rows) mesh);
+     on one card add no hardware): every entry and the unsharded leg one
+     graph replay a batch (``captured``), no memory held after the harness,
+     and each entry beside its eager batch (checksums equal bit for bit, ms
+     a frame in turns, host calls and busy ms a batch, the graph's MiB and
+     its release); then ``dryrun_multichip(4, ["cuda:0"] * 4)`` (the full
+     752×480 pipeline by bands with speckle and bilateral, the band
+     matcher, SGM, remap and slabs against their twins, the sharded BA and
+     SLAM on a (kf, rows) mesh); and a short round of the A/B harness
+     (``scripts/torch_abbench.py``'s K1 ×2 and K2 candidates, 2 frames a
+     batch, 2 rounds; each call's K1 and K2 launches gated);
   7. runs the serving paths at 752×480 with the EuRoC-like calibration,
      each frame launching K1, K2 and K3 and no other kernel:
        * Bayer input: BM defaults on ``bayer_grbg8`` frames (the synthetic
@@ -226,6 +235,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import statistics
@@ -272,6 +282,10 @@ KERNEL_REPS = 20
 PLAIN_REPS = 3
 PROFILER_WINDOWS = 8   # windows tried when the profiler drops a window's events
 BENCH_TIMEOUT_S = 600
+SCALING_BATCH = 4   # the scaling harness's batch (measure_scaling's default) and timed calls
+SCALING_ITERS = 3
+AB_BATCH = 2        # the short A/B round: frames a batch and rounds
+AB_TRIALS = 2
 HARD_FRAMES = 200   # the layered scene over SGM: scripts/torch_record_ate_hard.py's SGM record
 HARD_COMPARED = 8   # its first frames, also run on the CPU and compared
 SIXDOF = dict(width=400, height=300, fx=350.0, baseline=0.1, Z0=2.5)   # tests/test_vo_6dof.py
@@ -1148,6 +1162,60 @@ def run_slab(torch, _build, port, new_pipe, make_mesh, frames, outputs, kern, de
     return lines, launches
 
 
+def slam_mesh_run(torch, port, model, mesh, frames, eager):
+    """``run_stream(depth=2)`` of ``StereoSlam(model, mesh=mesh)`` over
+    ``frames``, with each landmark-sharded BA solve recorded (entry, inputs,
+    result) and each ``_local_ba`` call timed on the host (it ends in a
+    host read).  ``eager``: every solve runs the entry's eager function on
+    the inputs uploaded as the engine uploads them for a line over several
+    devices (the parent's path), instead of the captured entry.  Returns
+    (engine, infos, ms a frame, solves, [(BA ms, window size or None)])."""
+    slam = port.StereoSlam(model, mesh=mesh)
+    solve, local_ba, windows, ba_calls = slam._ba_solve, slam._local_ba, [], []
+
+    def sharded(M):
+        entry = solve(M)
+
+        def call(*arrays):
+            out = (entry.fn(*(torch.from_numpy(a).to(entry.device) for a in arrays)) if eager
+                   else entry(*arrays))
+            windows.append((entry, arrays, out))
+            return out
+        return call
+
+    def timed_ba():
+        k, t0 = len(windows), time.perf_counter()
+        local_ba()
+        ba_calls.append(((time.perf_counter() - t0) * 1e3,
+                         windows[k][1][0].shape[0] if len(windows) > k else None))
+
+    slam._ba_solve, slam._local_ba = sharded, timed_ba
+    per_frame_ms, infos = [], []
+    last = time.perf_counter()
+    for info in slam.run_stream(iter(frames), depth=2):
+        now = time.perf_counter()
+        per_frame_ms.append((now - last) * 1e3)
+        last = now
+        infos.append(info)
+    torch.cuda.synchronize()
+    return slam, infos, per_frame_ms, windows, ba_calls
+
+
+def ba_per_keyframe(ba_calls):
+    """BA ms per keyframe: the mean and median over every ``_local_ba``
+    call, and the mean over the calls whose window size came before (on the
+    captured path: the replays, no capture among them)."""
+    seen, steady = set(), []
+    for ms, M in ba_calls:
+        if M is not None and M in seen:
+            steady.append(ms)
+        seen.add(M)
+    every = [ms for ms, _ in ba_calls]
+    return {"mean_ms": statistics.fmean(every), "median_ms": statistics.median(every),
+            "steady_mean_ms": statistics.fmean(steady) if steady else None,
+            "calls": len(every), "steady_calls": len(steady)}
+
+
 def run_slam_meshes(torch, port, _build, evaluate, calib, make_mesh, frames, gt, dev,
                     kernels, one_traj):
     """The SLAM cell on a ``("kf",)`` mesh of 2 entries of ``dev`` (the BA
@@ -1156,8 +1224,11 @@ def run_slam_meshes(torch, port, _build, evaluate, calib, make_mesh, frames, gt,
     K7 four times a frame, the band label rounds, no K3): ``run_stream(depth=2)``
     over every frame, counts set to 0 just before and read just after; the
     ATE gate after ``optimize_global``, and each frame's position within
-    SLAM_MESH_POSE_ATOL of the single-device run's (``one_traj``).  Returns
-    (JSON lines, launches by label)."""
+    SLAM_MESH_POSE_ATOL of the single-device run's (``one_traj``); the
+    sharded BA checks of :func:`check_sharded_ba`.  Then the same run with
+    every sharded solve eager (the parent's path): positions equal to the
+    captured run's bit for bit, and BA ms per keyframe beside the captured
+    run's.  Returns (JSON lines, launches by label)."""
     model = planar_model(calib)
     n = len(frames)
     lines, launches = [], {}
@@ -1167,17 +1238,10 @@ def run_slam_meshes(torch, port, _build, evaluate, calib, make_mesh, frames, gt,
             ("slam kf rows", make_mesh(8, ("kf", "rows"), shape=(2, BANDS),
                                        devices=[dev] * 2 * BANDS),
              {"K1": BANDS * n, "K2": BANDS * n, "K3": 0, "K7": BANDS * n, "BL": None})):
-        slam = port.StereoSlam(model, mesh=mesh)
         torch.cuda.synchronize()
         _build.reset_launch_counts()
-        per_frame_ms, infos = [], []
-        last = time.perf_counter()
-        for info in slam.run_stream(iter(frames), depth=2):
-            now = time.perf_counter()
-            per_frame_ms.append((now - last) * 1e3)
-            last = now
-            infos.append(info)
-        torch.cuda.synchronize()
+        slam, infos, per_frame_ms, windows, ba_calls = slam_mesh_run(
+            torch, port, model, mesh, frames, eager=False)
         launches[label] = {k: kernels[k].launches for k in want}
         log(f"{label} launches over {n} frames: {launches[label]}")
         for k, w in want.items():
@@ -1189,12 +1253,27 @@ def run_slam_meshes(torch, port, _build, evaluate, calib, make_mesh, frames, gt,
             raise AssertionError(f"{label}: frames not tracked")
         traj = np.stack(slam.traj_t)
         pose_diff = float(np.abs(traj - one_traj).max())
-        stages = slam.timer.as_dict()
+        ba = check_sharded_ba(torch, slam, windows, label, dev)
+        eager_slam, _, _, _, eager_calls = slam_mesh_run(torch, port, model, mesh, frames,
+                                                         eager=True)
+        eager_slam.pipeline.senders.shutdown()
+        if not np.array_equal(np.stack(eager_slam.traj_t), traj):
+            raise AssertionError(f"{label}: the run with eager sharded solves differs from the "
+                                 f"captured run")
+        ba_ms = {"captured": ba_per_keyframe(ba_calls), "eager": ba_per_keyframe(eager_calls)}
         closures = slam.optimize_global()
         ate = evaluate.ate_rmse(slam.trajectory(), gt)
         log(f"{label}: {len(slam.store)} keyframes, {closures} loop closures, ATE {ate:.5f} m "
             f"after optimize_global, positions within {pose_diff:.3e} m of the single-device "
-            f"run, BA {stages['ba']['mean_ms']:.3f} ms per keyframe")
+            f"run; {ba['ba_windows']} sharded solves of sizes {ba['ba_window_sizes']}: "
+            f"{ba['ba_graph_replays']} graph replays, {ba['ba_graphs']} captures, each equal to "
+            f"its eager solve bit for bit; BA ms per keyframe captured / eager: mean "
+            f"{ba_ms['captured']['mean_ms']:.3f} / {ba_ms['eager']['mean_ms']:.3f}, median "
+            f"{ba_ms['captured']['median_ms']:.3f} / {ba_ms['eager']['median_ms']:.3f}, "
+            f"after each shape's first {ba_ms['captured']['steady_mean_ms']:.3f} / "
+            f"{ba_ms['eager']['steady_mean_ms']:.3f}; the solve "
+            f"{ba['solve_captured_median_ms']:.3f} / {ba['solve_eager_median_ms']:.3f} ms; "
+            f"positions of the eager-solve run equal")
         if not np.isfinite(ate) or ate >= ATE_GATE_M:
             raise AssertionError(f"{label}: ATE {ate} m (gate {ATE_GATE_M})")
         if pose_diff > SLAM_MESH_POSE_ATOL:
@@ -1206,10 +1285,38 @@ def run_slam_meshes(torch, port, _build, evaluate, calib, make_mesh, frames, gt,
             "path": label.replace(" ", "_"), "frames": n, "keyframes": len(slam.store),
             "e2e_median_ms": statistics.median(steady),
             "e2e_p75_ms": float(np.percentile(steady, 75)),
-            "ba_ms_per_keyframe": stages["ba"]["mean_ms"], "ba_calls": stages["ba"]["count"],
-            "ate_after_m": ate, "loop_closures": closures,
-            "max_position_diff_vs_one_device_m": pose_diff, "kernel_launches": launches[label]})
+            "ba_ms_per_keyframe": ba_ms["captured"]["mean_ms"], "ba_calls": len(ba_calls),
+            **{f"ba_{k}": v for k, v in ba_ms.items()}, **ba, "ate_after_m": ate,
+            "loop_closures": closures, "max_position_diff_vs_one_device_m": pose_diff,
+            "kernel_launches": launches[label]})
     return lines, launches
+
+
+def check_sharded_ba(torch, slam, windows, label, dev):
+    """The sharded BA solves of a SLAM run on a ``kf`` line of one card
+    (``windows``: each call's entry, inputs and result): one graph per
+    window shape (so every call after the first of its shape a replay), and
+    every result equal to the eager sharded ``_window_solve`` (the entry's
+    ``fn``) on the same inputs bit for bit; each solve's ms captured (a
+    replay, inputs copied in) and eager, by CUDA events.  Returns the
+    counts and the solves' medians."""
+    entries = list(slam._ba_solves.values())
+    shapes = sorted({arrays[0].shape[0] for _, arrays, _ in windows})
+    if not windows or len(entries) != len(shapes) or any(
+            e.graph_count() != 1 for e in entries):
+        raise AssertionError(f"{label}: {len(windows)} sharded solves, {len(entries)} entries for "
+                             f"window sizes {shapes}, graphs "
+                             f"{[e.graph_count() for e in entries]}")
+    ms = {"captured": [], "eager": []}
+    for i, (entry, arrays, got) in enumerate(windows):
+        tensors = [torch.from_numpy(a).to(dev) for a in arrays]
+        same_bits(host_tree(torch, got), host_tree(torch, entry.fn(*tensors)),
+                  f"{label} sharded BA window {i}")
+        ms["captured"].append(cuda_ms(torch, lambda: entry(*arrays), 3))
+        ms["eager"].append(cuda_ms(torch, lambda: entry.fn(*tensors), 3))
+    return {"ba_windows": len(windows), "ba_window_sizes": shapes, "ba_graphs": len(entries),
+            "ba_graph_replays": len(windows) - len(entries), "ba_bit_exact": True,
+            **{f"solve_{k}_median_ms": statistics.median(v) for k, v in ms.items()}}
 
 
 def run_6dof(torch, port, _build, features, calib, evaluate, sixdof, dev, kernels):
@@ -1458,28 +1565,108 @@ def run_multihost(torch, multihost, make_mesh, dev):
             "wall_s": wall_s, "kernel_launches": launches}, launches
 
 
+def scaling_entries(torch, scaling, mode, speckle, dev):
+    """Each entry of the scaling harness on ``dev`` (1, 2 and BANDS entries
+    and the unsharded leg; every line one card, so each captured) beside its
+    eager batch: the captured batch's checksums (the first call's, from the
+    eager run before the capture, and a replay's) equal the eager batch's
+    bit for bit; ms a frame captured and eager in turns
+    (``scaling.timed_batch``, SCALING_ITERS timed calls); host calls and
+    device busy ms per batch (the profiler over 2 batches); the graph's
+    memory (reserved bytes the first call adds, after emptying the cache);
+    and that memory given back once the runner is dropped.  Returns the
+    JSON rows, by entry."""
+    lefts, rights = scaling.scaling_frames(SCALING_BATCH, H, W, dev)
+    rows = {}
+    for n, runner, captured in scaling.scaling_steps(H, scaling.BM, [1, 2, BANDS], mode, speckle,
+                                                     True, [dev] * BANDS):
+        if not captured:
+            raise AssertionError(f"scaling {mode} {n}: a line on one card is not captured")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved(dev)
+        first = runner(lefts, rights)
+        torch.cuda.synchronize()
+        graph_mb = (torch.cuda.memory_reserved(dev) - r0) / 2**20
+        eager = runner.fn(lefts, rights)
+        same_bits({"sums": first.cpu().numpy()}, {"sums": eager.cpu().numpy()},
+                  f"scaling {mode} {n}: the first call")
+        same_bits({"sums": runner(lefts, rights).cpu().numpy()}, {"sums": eager.cpu().numpy()},
+                  f"scaling {mode} {n}: a replay")
+        ms = {"captured": [], "eager": []}
+        for _ in range(2):
+            for k, run in (("captured", runner), ("eager", runner.fn)):
+                ms[k].append(scaling.timed_batch(run, lefts, rights, SCALING_ITERS))
+        prof = {k: dispatch_profile(torch, lambda i, run=run: run(lefts, rights), 2)
+                for k, run in (("captured", runner), ("eager", runner.fn))}
+        if prof["captured"]["graph_launches_per_frame"] != 1:
+            raise AssertionError(f"scaling {mode} {n}: {prof['captured']} graph launches a batch")
+        del runner, first, eager
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        kept_mb = (torch.cuda.memory_reserved(dev) - r0) / 2**20
+        if graph_mb > 0 and kept_mb > 0.5 * graph_mb:
+            raise AssertionError(f"scaling {mode} {n}: {kept_mb:.1f} of the graph's "
+                                 f"{graph_mb:.1f} MiB still reserved after its runner went")
+        rows[n] = {
+            "bit_exact": True, "graph_mib": graph_mb, "kept_mib_after_release": kept_mb,
+            **{f"{k}_ms_per_frame": min(v) for k, v in ms.items()},
+            **{f"{k}_ms_per_frame_runs": v for k, v in ms.items()},
+            **{f"{k}_{f}_per_batch": prof[k][f"{f}_per_frame"] for k in prof for f in (
+                "host_calls", "graph_launches", "device_events", "device_busy_ms")}}
+        log(f"scaling {mode} {n}: captured {rows[n]['captured_ms_per_frame']:.3f} ms a frame "
+            f"against {rows[n]['eager_ms_per_frame']:.3f} eager, host calls a batch "
+            f"{rows[n]['captured_host_calls_per_batch']:.1f} against "
+            f"{rows[n]['eager_host_calls_per_batch']:.1f}, busy ms a batch "
+            f"{rows[n]['captured_device_busy_ms_per_batch']:.3f} against "
+            f"{rows[n]['eager_device_busy_ms_per_batch']:.3f}, graph {graph_mb:.1f} MiB "
+            f"({kept_mb:.1f} kept after release); checksums equal")
+    for k in ("captured", "eager"):
+        base = rows[1][f"{k}_ms_per_frame"]
+        log(f"scaling {mode} {k} wall_overhead_vs_1dev: " + json.dumps(
+            {n: r[f"{k}_ms_per_frame"] / base for n, r in rows.items() if n != "unsharded"}))
+    return rows
+
+
 def run_scaling(torch, port, _build, kernels, dev):
     """``measure_scaling`` on 1, 2 and 4 entries of ``dev`` (row bands with
-    the speckle filter, and slabs; one device unsharded beside them), then
-    ``dryrun_multichip(4, [dev] * 4)``; counts set to 0 before each and read
-    after.  Entries on one card add no hardware, so ``efficiency`` means
-    nothing here and ``wall_overhead_vs_1dev`` is the number to read.
-    Returns (JSON lines, launches by label)."""
+    the speckle filter, and slabs; one device unsharded beside them): every
+    entry a graph replay of its batch (``captured``), counts set to 0
+    before and read after, and the memory ``torch.cuda`` holds after the
+    harness no more than before it (each entry's graph released); then each
+    entry against its eager batch (:func:`scaling_entries`); then
+    ``dryrun_multichip(4, [dev] * 4)``.  Entries on one card add no
+    hardware, so ``efficiency`` means nothing here and
+    ``wall_overhead_vs_1dev`` is the number to read.  Returns (JSON lines,
+    launches by label)."""
+    from ros_gpu_stereo_processor_tpu_torch.parallel import scaling
+
     lines, launches = [], {}
     for mode, speckle in (("rows", 800), ("disp", 0)):
         label = f"scaling {mode}"
         torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
         _build.reset_launch_counts()
         out = port.measure_scaling(devices=[dev] * BANDS, device_counts=[1, 2, BANDS],
-                                   mode=mode, max_speckle_size=speckle,
-                                   include_unsharded=True)
+                                   batch=SCALING_BATCH, iters=SCALING_ITERS, mode=mode,
+                                   max_speckle_size=speckle, include_unsharded=True)
+        torch.cuda.synchronize()
         launches[label] = {k: kern.launches for k, kern in kernels.items()}
+        grown = (torch.cuda.memory_allocated(dev) - held) / 2**20
         need = ("K2",) if mode == "rows" else ()
         for k in need + (("K7", "BL") if speckle else ()):
             if launches[label][k] < 1:
                 raise AssertionError(f"{label}: {k} never launched")
+        if not all(out["captured"].values()):
+            raise AssertionError(f"{label}: not every one-card entry captured: {out['captured']}")
+        if grown > 1.0:   # a runner kept alive holds at least its 2.9 MiB of static inputs
+            raise AssertionError(f"{label}: torch.cuda holds {grown:.1f} MiB more after the "
+                                 f"harness than before it")
         log(f"{label}: " + json.dumps(out))
-        lines.append({"path": label.replace(" ", "_"), **out})
+        entries = scaling_entries(torch, scaling, mode, speckle, dev)
+        lines.append({"path": label.replace(" ", "_"), **out, "allocated_mib_after": grown,
+                      "entries": entries})
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     dry = port.dryrun_multichip(BANDS, devices=[dev] * BANDS)
@@ -1489,6 +1676,39 @@ def run_scaling(torch, port, _build, kernels, dev):
             raise AssertionError(f"dryrun: {k} never launched")
     lines.append({"path": "dryrun_multichip", **dry, "kernel_launches": launches["dryrun"]})
     return lines, launches
+
+
+def run_ab(torch, _build, graphs, remap_kernel, bench, dev):
+    """A short round of the A/B harness (``scripts/torch_abbench.py``'s
+    candidates, ``utils/graphs.py::ab``): K1 ×2 and K2 fused on the
+    rectified float32 pair, AB_BATCH frames a batch, AB_TRIALS rounds;
+    counts set to 0 just before and read just after: each call launches
+    K1's float32 entry 2·B times and K2 B times (the first call eagerly,
+    the others as replays).  Returns (JSON line, launches)."""
+    import importlib
+
+    abbench = load_script("torch_abbench")
+    model, left, right = bench._model_and_frame()
+    _, stages = abbench.candidates(
+        lambda name: importlib.import_module(f"ros_gpu_stereo_processor_tpu_torch.{name}"),
+        model, dev)
+    maps, _ = bench._model_tensors(model, dev)
+    rect = remap_kernel.rectify(
+        torch.from_numpy(np.stack([left, right])).to(dev).float(), maps)
+    rl, rr = (torch.stack([rect[i]] * AB_BATCH) for i in (0, 1))
+    cands = {k: stages[k] for k in ("rectify K1 x2", "stereobm fused K2")}
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    res = graphs.ab(cands, rl, rr, trials=AB_TRIALS)
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in _build.kernels().items() if v.launches}
+    calls = 2 + AB_TRIALS * 3
+    want = {"remap_bilinear_f32": 2 * AB_BATCH * calls, "bm_fused": AB_BATCH * calls}
+    if launches != want:
+        raise AssertionError(f"ab: launches {launches}, not {want}")
+    log(f"ab: {json.dumps(res)}; launches {launches}")
+    return {"path": "ab K1 K2", "batch": AB_BATCH, "trials": AB_TRIALS, **res,
+            "kernel_launches": launches}, {"K2": launches["bm_fused"]}
 
 
 def calib_yaml(path, c):
@@ -2930,6 +3150,9 @@ def main() -> int:
         lines, more = run_scaling(torch, port, _build, kernels, dev)
         e2e += lines
         launches.update(more)
+    with phase("ab", seconds):
+        line, launches["ab"] = run_ab(torch, _build, graphs, remap_kernel, bench, dev)
+        e2e.append(line)
 
     # -- the serve daemon and the CLI -------------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:

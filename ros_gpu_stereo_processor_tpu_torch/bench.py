@@ -132,11 +132,6 @@ def _on(dev, images) -> torch.Tensor:
     return upload(np.stack(images), dev)
 
 
-def _checksum(out) -> torch.Tensor:
-    """A frame's outputs as one float32 sum on their device (NaN as 0)."""
-    return sum(torch.nan_to_num(v.float()).sum() for v in out.values())
-
-
 def _model_tensors(model, dev):
     return (torch.from_numpy(model.rect_maps_stacked()).to(dev),
             torch.from_numpy(model.Q.astype(np.float32)).to(dev))
@@ -149,13 +144,11 @@ def _frame_runner(model, cfg: PipelineConfig, outputs: Outputs, dev):
     graph (the JAX bench's jitted ``lax.scan``)."""
     maps, Q = _model_tensors(model, dev)
 
-    def run(lefts, rights):
-        return torch.stack([
-            _checksum(_pipeline_step(lefts[i], rights[i], maps, Q, encoding="mono8",
-                                     outputs=outputs, bm=cfg.stereobm, speckle=cfg.speckle))
-            for i in range(len(lefts))])
+    def frame(left, right):
+        return _pipeline_step(left, right, maps, Q, encoding="mono8", outputs=outputs,
+                              bm=cfg.stereobm, speckle=cfg.speckle)
 
-    return graphs.Captured(run, dev, name="bench compute batch")
+    return graphs.batch_runner(frame, dev, name="bench compute batch")
 
 
 def _enqueue_batches(run, lefts, rights, iters: int) -> torch.Tensor:
@@ -614,7 +607,7 @@ def _stage_breakdown(model, left, right, cfg, dev):
     l_d, r_d = pipe._to_device(left), pipe._to_device(right)
     for name, o in stages.items():
         out[name], spread[name] = window_ms(
-            lambda o=o: _checksum(pipe._eager(l_d, r_d, o, "mono8")))
+            lambda o=o: graphs.checksum(pipe._eager(l_d, r_d, o, "mono8")))
     pipe.senders.shutdown()
     return out, spread
 

@@ -478,7 +478,7 @@ class StereoPipeline:
 
         run = steps if batch else step
         line = self._line
-        if line is None or (not line.spans_processes and len(line.unique_devices()) == 1):
+        if line is None or line.on_one_device():
             name = (f"{'batch ' if batch else ''}{'' if line is None else 'mesh '}step "
                     f"{'+'.join(sorted(outputs.flags))} {encoding}")
             fn = graphs.Captured(run, self.device, name=name)

@@ -15,7 +15,11 @@ device of its tensors and nothing falls back.  With ``mesh``
 (parallel/mesh.py) a ``rows`` axis runs the dense frontend by row bands
 over ``mesh.along("rows")``, and a ``kf`` axis runs the windowed BA
 landmark-sharded over ``mesh.along("kf")`` (parallel/dist_ba.py); a
-``(kf, rows)`` mesh runs both, as the JAX engine does.
+``(kf, rows)`` mesh runs both, as the JAX engine does.  On the card the BA
+solve is one CUDA graph replay per keyframe once its window shape is
+captured (utils/graphs.py), the landmark-sharded one too when the ``kf``
+line is one card in this process; a line over several devices or processes
+solves eagerly.
 
 Threads: under ``run_stream(async_mapping=True)`` the mapping worker
 (track association, BA) and the tracking thread both launch on the
@@ -92,14 +96,20 @@ def _landmark_rms(p: BA.BAProblem, mask: torch.Tensor) -> torch.Tensor:
 
 
 def _window_solve(R, t, points, obs, mask, prior, *, fx: float, cx: float, cy: float,
-                  iters: int, fix_first_pose: bool):
+                  iters: int, mesh=None):
     """The windowed BA solve from world→camera poses (M, 3, 3), (M, 3),
     landmarks (N, 3), observations (M, N, 2), their mask (M, N) and the
     point prior (N,): the refined (R, t, points) and each landmark's
-    reprojection rms at the solution.  :meth:`StereoSlam._local_ba`'s device
-    work, captured per window shape (``StereoSlam._ba_solve``)."""
+    reprojection rms at the solution, the first pose fixed; with ``mesh``
+    (a ``kf`` line) landmark-sharded over it (parallel/dist_ba.py).
+    :meth:`StereoSlam._local_ba`'s device work, captured per window shape
+    (``StereoSlam._ba_solve``)."""
     p = BA.BAProblem(R=R, t=t, points=points, obs=obs, mask=mask, fx=fx, cx=cx, cy=cy)
-    pf, _ = BA.bundle_adjust(p, iters=iters, fix_first_pose=fix_first_pose, point_prior=prior)
+    if mesh is None:
+        pf, _ = BA.bundle_adjust(p, iters=iters, fix_first_pose=True, point_prior=prior)
+    else:
+        pf, _ = bundle_adjust_sharded(p, mesh, iters=iters, fix_first_pose=True,
+                                      point_prior=prior)
     return pf.R, pf.t, pf.points, _landmark_rms(pf, mask)
 
 
@@ -539,21 +549,34 @@ class StereoSlam:
         m = self.model
         return m.fx, m.left.calib.cx, m.left.calib.cy
 
+    def _ba_line(self):
+        """The ``kf`` line the windowed BA is landmark-sharded over, or None:
+        no ``kf`` axis, or a landmark capacity the line does not divide."""
+        line = self._ba_mesh
+        return line if line is not None and self.config.ba_landmarks % line.size == 0 else None
+
     def _ba_solve(self, M: int) -> graphs.Captured:
         """The windowed BA solve over ``M`` keyframes (:func:`_window_solve`),
-        as the JAX engine jits it: one :class:`graphs.Captured` per window
-        shape (M, the padded landmark capacity), solver settings and camera
-        scalars (``BAProblem`` carries fx, cx, cy as Python floats, which a
-        graph bakes in), so on the card a keyframe's solve is one graph
-        replay with the inputs copied in; on the CPU it is the function."""
+        as the JAX engine jits it (on a ``kf`` line: one ``shard_map`` whose
+        iterations are a ``lax.scan``): one :class:`graphs.Captured` per
+        window shape (M, the padded landmark capacity), the ``kf`` line's
+        size (None without one), solver iterations and camera scalars
+        (``BAProblem`` carries fx, cx, cy as Python floats, which a graph
+        bakes in).  On the card :meth:`_local_ba` replays it, a keyframe's
+        solve one graph replay with the inputs copied in, unless the line is
+        over several devices or processes; on the CPU it is the function."""
         cfg = self.config
         fx, cx, cy = self._cam()
-        kw = dict(fx=fx, cx=cx, cy=cy, iters=cfg.ba_iters, fix_first_pose=True)
-        key = (M, cfg.ba_landmarks) + tuple(kw.values())
+        line = self._ba_line()
+        key = (M, cfg.ba_landmarks, None if line is None else line.size, cfg.ba_iters,
+               fx, cx, cy)
         fn = self._ba_solves.get(key)
         if fn is None:
             fn = self._ba_solves[key] = graphs.Captured(
-                functools.partial(_window_solve, **kw), self.device, name=f"BA window {M}")
+                functools.partial(_window_solve, fx=fx, cx=cx, cy=cy, iters=cfg.ba_iters,
+                                  mesh=line),
+                self.device if line is None else line.devices[0],
+                name=f"BA window {M}" + ("" if line is None else f" over {line.size}"))
         return fn
 
     def _relocalize_solve(self, cur, tr_desc, tr_alive, tr_pos, R_wc0, t_wc0):
@@ -763,14 +786,13 @@ class StereoSlam:
         # the solve, and the per-landmark reprojection rms at the solution: a
         # landmark that cannot fit the rigid window solve is purged from the
         # map below
-        if self._ba_mesh is not None and N % self._ba_mesh.size == 0:
-            R, t, pts, obs_d, mask_d, prior = (_f32(a, dev) for a in arrays)
-            p = BA.BAProblem(R, t, pts, obs_d, mask_d, *self._cam())
-            pf, _ = bundle_adjust_sharded(p, self._ba_mesh, iters=cfg.ba_iters,
-                                          point_prior=prior)
-            solved = (pf.R, pf.t, pf.points, _landmark_rms(pf, mask_d))
+        solve, line = self._ba_solve(len(win)), self._ba_line()
+        if line is None or line.on_one_device():
+            solved = solve(*arrays)
         else:
-            solved = self._ba_solve(len(win))(*arrays)
+            # a line over several devices or processes: eager (a graph per
+            # device and the exchanges between them are not captured)
+            solved = solve.fn(*(_f32(a, dev) for a in arrays))
         Rf, tf, pts_f, lm_rms_h = _host(*solved)
         with self._map_lock:
             for m, kf in enumerate(win):

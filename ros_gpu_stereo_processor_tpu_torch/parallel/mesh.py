@@ -105,6 +105,13 @@ class Mesh:
         process."""
         return False
 
+    def on_one_device(self) -> bool:
+        """Whether every entry is one device in this process (``["cuda:0"] *
+        4``): a step over such a mesh may be captured as one CUDA graph
+        (utils/graphs.py); one over several devices or processes runs
+        eagerly."""
+        return not self.spans_processes and len(self.unique_devices()) == 1
+
     # -- placement (on a line) ------------------------------------------------
 
     def split(self, x: torch.Tensor, dim: int = 0) -> List[torch.Tensor]:

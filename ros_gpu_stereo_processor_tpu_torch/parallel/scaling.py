@@ -6,41 +6,126 @@ The port of ``ros_gpu_stereo_processor_tpu/parallel/scaling.py`` and of
 :func:`measure_scaling` times the sharded matcher (row bands, optionally
 with the row-band speckle filter, or disparity slabs) on meshes of 1 … N
 entries and reports frames per second, the efficiency against linear
-scaling and the wall-time overhead against one entry.  Time is the host's
-wall clock around frames that end in a CUDA synchronize.
+scaling and the wall-time overhead against one entry.  As JAX jits a
+``lax.scan`` over the batch for each mesh size, a mesh whose line is one
+card in this process (``devices=["cuda:0"] * 4``) runs the whole batch as
+one CUDA graph replay (utils/graphs.py::batch_runner), and so does the
+unsharded leg on one card.  A line over several devices runs eagerly,
+frame by frame: a graph per device and the peer copies between them are not
+captured.  Time is the host's wall clock around batches that end in one
+host read of the batch's checksum.
 
-A mesh whose entries share one card (``devices=["cuda:0"] * 4``) or the
-CPU adds no hardware: n entries split the same work n ways on the same
-device, so ``efficiency`` = fps(n) / (n · fps(1)) tends to 1/n by
-construction and means nothing there.  The number to read on such a mesh
-is ``wall_overhead_vs_1dev`` = t(n) / t(1) at fixed total work: 1 plus the
-cost of sharding (halo exchanges, collectives and n times the launches).
+A mesh whose entries share one card or the CPU adds no hardware: n entries
+split the same work n ways on the same device, so ``efficiency`` =
+fps(n) / (n · fps(1)) tends to 1/n by construction and means nothing there.
+The number to read on such a mesh is ``wall_overhead_vs_1dev`` = t(n) / t(1)
+at fixed total work: 1 plus the device's cost of sharding (halo exchanges,
+collectives, the speckle filter's merge rounds and n times the launches).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ros_gpu_stereo_processor_tpu_torch.config import StereoBMConfig
 from ros_gpu_stereo_processor_tpu_torch.parallel.mesh import make_mesh
+from ros_gpu_stereo_processor_tpu_torch.utils import graphs
 from ros_gpu_stereo_processor_tpu_torch.utils.calib import euroc_like_model
 
+BM = StereoBMConfig(num_disparities=64, block_size=15, texture_threshold=10)
 
-def _sync(devices) -> None:
-    for d in dict.fromkeys(devices):
-        if torch.device(d).type == "cuda":
-            torch.cuda.synchronize(d)
+
+def scaling_frames(batch: int, height: int, width: int,
+                   device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The harness's (B, H, W) uint8 left and right stacks on ``device``:
+    uniform noise from ``default_rng(0)``, as the JAX harness draws them."""
+    rng = np.random.default_rng(0)
+    lefts = rng.integers(0, 255, (batch, height, width), np.uint8)
+    rights = rng.integers(0, 255, (batch, height, width), np.uint8)
+    dev = torch.device(device)
+    return torch.from_numpy(lefts).to(dev), torch.from_numpy(rights).to(dev)
+
+
+def scaling_steps(
+    height: int,
+    cfg: StereoBMConfig = BM,
+    device_counts: Optional[List[int]] = None,
+    mode: str = "rows",
+    max_speckle_size: int = 0,
+    include_unsharded: bool = False,
+    devices: Optional[Sequence] = None,
+) -> Iterator[Tuple[Union[int, str], graphs.Captured, bool]]:
+    """The batch step of each entry count :func:`measure_scaling` times, one
+    at a time: ``(n, runner, captured)``, n the entry count (``"unsharded"``
+    for one device without a mesh, last), ``runner`` the
+    :func:`graphs.batch_runner` of the entry's frame (``runner.fn`` is the
+    eager batch) and ``captured`` whether the entry runs as the runner's
+    graph replay (a line of one CUDA device in this process) or eagerly.
+    Drop each runner before taking the next: its graph and memory pool go
+    with it.  Arguments as :func:`measure_scaling`'s."""
+    from ros_gpu_stereo_processor_tpu_torch.ops import speckle as speckle_ops
+    from ros_gpu_stereo_processor_tpu_torch.ops import stereobm_kernel
+    from ros_gpu_stereo_processor_tpu_torch.parallel.frontend import (
+        disparity_row_sharded, disparity_slab_sharded, filter_speckles_row_sharded)
+
+    if mode not in ("rows", "disp"):
+        raise ValueError(f"mode={mode!r} must be 'rows' or 'disp'")
+    devices = _devices(devices)
+    if device_counts is None:
+        device_counts = [n for n in (1, 2, 4, 8, 16) if n <= len(devices)]
+    first = devices[0]
+    for n in device_counts:
+        if mode == "rows" and height % n != 0:
+            continue
+        if mode == "disp" and cfg.num_disparities % n != 0:
+            continue
+        axis = "rows" if mode == "rows" else "disp"
+        mesh = make_mesh(n, (axis,), devices=devices[:n])
+
+        def frame(left, right, mesh=mesh, axis=axis):
+            if mode == "disp":
+                return disparity_slab_sharded(left, right, cfg, mesh, axis)
+            d, v = disparity_row_sharded(left, right, cfg, mesh, axis)
+            if max_speckle_size > 0:
+                d, v = filter_speckles_row_sharded(d, v, mesh, axis,
+                                                   max_speckle_size=max_speckle_size)
+            return d, v
+
+        yield (n, graphs.batch_runner(frame, first, name=f"scaling {mode} {n}"),
+               mesh.on_one_device() and first.type == "cuda")
+    if include_unsharded:
+        def unsharded(left, right):
+            d, v = stereobm_kernel.compute_disparity_fused(left, right, cfg)
+            if max_speckle_size > 0:
+                d, v = speckle_ops.filter_speckles(d, v, max_speckle_size=max_speckle_size)
+            return d, v
+
+        yield ("unsharded", graphs.batch_runner(unsharded, first, name="scaling unsharded"),
+               first.type == "cuda")
+
+
+def timed_batch(run: Callable, lefts: torch.Tensor, rights: torch.Tensor, iters: int) -> float:
+    """ms a frame of ``run(lefts, rights)``, as JAX's harness times its
+    jitted scan: the first call (the warm-up, the kernels' build and the
+    capture) untimed, then ``iters`` calls each ending in one host read of
+    the batch's checksum (JAX's ``float(run(...))``), on the host's clock;
+    the mean call's ms over B."""
+    float(run(lefts, rights).sum())
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        float(run(lefts, rights).sum())
+    dt = (time.perf_counter() - t0) / iters
+    return dt * 1e3 / lefts.shape[0]
 
 
 def measure_scaling(
     height: int = 480,
     width: int = 752,
-    cfg: StereoBMConfig = StereoBMConfig(num_disparities=64, block_size=15,
-                                         texture_threshold=10),
+    cfg: StereoBMConfig = BM,
     device_counts: Optional[List[int]] = None,
     batch: int = 4,
     iters: int = 3,
@@ -61,62 +146,24 @@ def measure_scaling(
 
     Returns {"mode", "speckle", "devices", "results": [{n_devices,
     ms_per_frame, fps}], "efficiency": {n: fps(n) / ((n / n0) · fps(n0))},
-    "wall_overhead_vs_1dev": {n: t(n) / t(1)}} (``_vs_<n0>dev`` when no
-    1-entry run was measured), plus "unsharded_ms_per_frame" on request.
+    "wall_overhead_vs_1dev": {n: t(n) / t(1)} (``_vs_<n0>dev`` when no
+    1-entry run was measured), "captured": {n: whether n's batch was a
+    graph replay}}, plus "unsharded_ms_per_frame" on request (and
+    ``captured["unsharded"]``).
     """
-    from ros_gpu_stereo_processor_tpu_torch.ops import speckle as speckle_ops
-    from ros_gpu_stereo_processor_tpu_torch.ops import stereobm_kernel
-    from ros_gpu_stereo_processor_tpu_torch.parallel.frontend import (
-        disparity_row_sharded, disparity_slab_sharded, filter_speckles_row_sharded)
+    devices = _devices(devices)
+    lefts, rights = scaling_frames(batch, height, width, devices[0])
 
-    if mode not in ("rows", "disp"):
-        raise ValueError(f"mode={mode!r} must be 'rows' or 'disp'")
-    if devices is None:
-        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if have == 0:
-            raise RuntimeError("no CUDA device; pass devices= (e.g. ['cpu'] * 4)")
-        devices = [torch.device("cuda", i) for i in range(have)]
-    devices = list(devices)
-    if device_counts is None:
-        device_counts = [n for n in (1, 2, 4, 8, 16) if n <= len(devices)]
-
-    rng = np.random.default_rng(0)
-    first = torch.device(devices[0])
-    lefts = torch.from_numpy(rng.integers(0, 255, (batch, height, width), np.uint8)).to(first)
-    rights = torch.from_numpy(rng.integers(0, 255, (batch, height, width), np.uint8)).to(first)
-
-    def timed(frame) -> float:
-        for i in range(batch):      # warm-up (and the kernels' build)
-            frame(lefts[i], rights[i])
-        _sync(devices)
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            for i in range(batch):
-                frame(lefts[i], rights[i])
-            _sync(devices)
-        dt = (time.perf_counter() - t0) / iters
-        return dt * 1e3 / batch
-
-    results = []
-    for n in device_counts:
-        if mode == "rows" and height % n != 0:
-            continue
-        if mode == "disp" and cfg.num_disparities % n != 0:
-            continue
-        axis = "rows" if mode == "rows" else "disp"
-        mesh = make_mesh(n, (axis,), devices=devices[:n])
-
-        def frame(left, right, mesh=mesh, axis=axis):
-            if mode == "disp":
-                return disparity_slab_sharded(left, right, cfg, mesh, axis)
-            d, v = disparity_row_sharded(left, right, cfg, mesh, axis)
-            if max_speckle_size > 0:
-                d, v = filter_speckles_row_sharded(d, v, mesh, axis,
-                                                   max_speckle_size=max_speckle_size)
-            return d, v
-
-        ms = timed(frame)
-        results.append({"n_devices": n, "ms_per_frame": ms, "fps": 1e3 / ms})
+    results, captured, unsharded_ms = [], {}, None
+    for n, runner, graph in scaling_steps(height, cfg, device_counts, mode, max_speckle_size,
+                                          include_unsharded, devices):
+        ms = timed_batch(runner if graph else runner.fn, lefts, rights, iters)
+        captured[n] = graph
+        if n == "unsharded":
+            unsharded_ms = ms
+        else:
+            results.append({"n_devices": n, "ms_per_frame": ms, "fps": 1e3 / ms})
+        del runner      # its graph and pool, before the next entry captures
 
     # the baseline is the 1-entry run when there is one (the divisibility
     # filters may drop it), else the smallest count measured
@@ -131,16 +178,20 @@ def measure_scaling(
                        for r in results},
         ("wall_overhead_vs_1dev" if base_n == 1 else f"wall_overhead_vs_{base_n}dev"): {
             r["n_devices"]: r["ms_per_frame"] / base_ms for r in results},
+        "captured": captured,
     }
     if include_unsharded:
-        def unsharded(left, right):
-            d, v = stereobm_kernel.compute_disparity_fused(left, right, cfg)
-            if max_speckle_size > 0:
-                d, v = speckle_ops.filter_speckles(d, v, max_speckle_size=max_speckle_size)
-            return d, v
-
-        out["unsharded_ms_per_frame"] = timed(unsharded)
+        out["unsharded_ms_per_frame"] = unsharded_ms
     return out
+
+
+def _devices(devices: Optional[Sequence]) -> List[torch.device]:
+    if devices is None:
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have == 0:
+            raise RuntimeError("no CUDA device; pass devices= (e.g. ['cpu'] * 4)")
+        return [torch.device("cuda", i) for i in range(have)]
+    return [torch.device(d) for d in devices]
 
 
 def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None, height: int = 480,

@@ -9,7 +9,10 @@ and copy; :class:`Captured` records such a function's launches once as a
 CUDA graph and then enqueues the whole step with one graph launch.  Its
 users: the frame step on one card or on a mesh whose band line is one
 card, ``process_batch``, the VO step, ``models/slam.py``'s BA solve per
-window shape, and the bench.
+window shape (the landmark-sharded solve too, on a ``kf`` line that is one
+card), and :func:`batch_runner`: a batch of frames reduced to checksums,
+the unit the scaling harness (parallel/scaling.py), the A/B harness
+(:func:`ab`) and the bench time.
 
   * One graph per input signature (the shape and dtype of every tensor
     input, and the device), captured at the first call with it.  That call
@@ -52,6 +55,7 @@ from __future__ import annotations
 import gc
 import os
 import threading
+import time
 import traceback
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -247,3 +251,69 @@ class Captured:
     def graph_count(self) -> int:
         """Graphs captured so far (one per input signature)."""
         return len(self._graphs)
+
+
+def checksum(out) -> torch.Tensor:
+    """One float32 number for a frame's outputs, as the JAX harnesses reduce
+    them (``scripts/abbench.py::make_runner``, the JAX bench): the sum over
+    the tensor leaves of ``out`` (a pytree; a dict in insertion order) of
+    each leaf's float32 sum with NaN as 0 and ±inf as the largest finite
+    values (``jnp.nan_to_num``), added from 0 in leaf order, on the first
+    leaf's device."""
+    leaves = [x for x in pytree.tree_leaves(out) if isinstance(x, torch.Tensor)]
+    dev = leaves[0].device
+    return sum(torch.nan_to_num(x.to(torch.float32)).sum().to(dev) for x in leaves)
+
+
+def batch_runner(fn: Callable, device=None, name: Optional[str] = None) -> Captured:
+    """A batch of frames as one compiled dispatch: the port's counterpart of
+    the JAX harnesses' jitted ``lax.scan`` over the batch
+    (``scripts/abbench.py::make_runner``, ``parallel/scaling.py``'s ``run``).
+
+    Returns a :class:`Captured` function of (B, H, W) ``lefts`` and
+    ``rights`` stacks that applies ``fn(left, right)`` to each frame and
+    returns the (B,) stack of each frame's :func:`checksum`.  On the card a
+    batch is one graph replay per input shape, with :class:`Captured`'s
+    rules (a capture that fails raises :class:`CaptureError`; nothing runs
+    eagerly in the graph's place); on the CPU it is the function.  The
+    eager batch is ``.fn``: the reference of the graph, and the step of a
+    caller whose frames span several devices."""
+    def run(lefts, rights):
+        return torch.stack([checksum(fn(lefts[i], rights[i])) for i in range(lefts.shape[0])])
+
+    return Captured(run, device, name=name or f"batch {getattr(fn, '__qualname__', fn)}")
+
+
+def ab(candidates: Dict[str, Callable], lefts, rights, trials: int = 6,
+       reps: int = 3) -> Dict[str, Dict[str, float]]:
+    """Interleaved A/B timing, the port of ``scripts/abbench.py::ab``.
+
+    ``candidates``: {name: fn(left, right) -> pytree}.  Each becomes a
+    :func:`batch_runner` on the device of ``lefts``; each runner is called
+    twice first (the eager run and the capture, then a replay).  Then
+    ``trials`` rounds take the candidates round-robin, so that a slow phase
+    of the host or the card hits every candidate alike: in each round,
+    ``reps`` calls of a candidate, each ending in one host read of its
+    batch's checksum, timed on the host's clock.  A candidate's time is
+    the minimum over the rounds of the mean call.  Prints and returns
+    {name: {"ms_per_frame", "fps"}}."""
+    B = lefts.shape[0]
+    runners = {}
+    for name, fn in candidates.items():
+        run = batch_runner(fn, lefts.device, name=name)
+        float(run(lefts, rights).sum())
+        float(run(lefts, rights).sum())
+        runners[name] = run
+    best = {name: float("inf") for name in runners}
+    for _ in range(trials):
+        for name, run in runners.items():
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                float(run(lefts, rights).sum())
+            best[name] = min(best[name], (time.perf_counter() - t0) / reps)
+    out = {}
+    for name, dt in best.items():
+        out[name] = {"ms_per_frame": dt / B * 1e3, "fps": B / dt}
+        print(f"{name:36s} {out[name]['ms_per_frame']:8.3f} ms/frame  "
+              f"({out[name]['fps']:7.1f} fps)")
+    return out

@@ -19,7 +19,12 @@ On the CPU (no graphs: the captured functions are called as they are):
   * the BA entry of ``StereoSlam._ba_solve`` against eager
     ``BA.bundle_adjust`` (exact) and the JAX ``bundle_adjust`` (atol 1e-4 +
     rtol 1e-4, tests/test_torch_ba.py's tolerance) for windows of 2–5
-    keyframes, one cache entry per window shape, reused.
+    keyframes, one cache entry per window shape, reused;
+  * the landmark-sharded BA entry of ``StereoSlam._ba_solve`` on a CPU
+    ``kf`` line of 2 against eager ``bundle_adjust_sharded`` (exact)
+    and the JAX ``bundle_adjust_sharded`` on the conftest's virtual mesh
+    (t and R atol 1e-3, points 5e-3: JAX's own bars, tests/test_dist_ba.py),
+    one cache entry per window shape, reused.
 
 On the card (marked ``cuda``; they skip elsewhere and import no JAX):
 
@@ -29,7 +34,10 @@ On the card (marked ``cuda``; they skip elsewhere and import no JAX):
   * a 4-band mesh frame on ``["cuda:0"] * 4`` (BM, BM ``lr_check``, SGM,
     slabs) captured and replayed, bit for bit against the eager step, with
     no host sync in the eager frame (``set_sync_debug_mode("error")``);
-  * the BA solve captured per window shape, bit for bit against eager.
+  * the BA solve captured per window shape, bit for bit against eager;
+  * the landmark-sharded BA captured on a ``["cuda:0"] * 2`` ``kf`` line,
+    bit for bit against eager, one graph replay per call after the first
+    of each window shape.
 """
 
 import functools
@@ -44,6 +52,7 @@ from ros_gpu_stereo_processor_tpu_torch.models import slam as tslam
 from ros_gpu_stereo_processor_tpu_torch.ops import speckle as tspeckle
 from ros_gpu_stereo_processor_tpu_torch.ops import speckle_kernel
 from ros_gpu_stereo_processor_tpu_torch.parallel import frontend as tpar
+from ros_gpu_stereo_processor_tpu_torch.parallel.dist_ba import bundle_adjust_sharded
 from ros_gpu_stereo_processor_tpu_torch.parallel.mesh import Mesh, make_mesh
 from ros_gpu_stereo_processor_tpu_torch.utils import calib as tcal
 from ros_gpu_stereo_processor_tpu_torch.utils import graphs
@@ -52,6 +61,8 @@ try:
     import jax.numpy as jnp
 
     from ros_gpu_stereo_processor_tpu.models import ba as JBA
+    from ros_gpu_stereo_processor_tpu.parallel.dist_ba import (
+        bundle_adjust_sharded as jax_sharded)
     from ros_gpu_stereo_processor_tpu.ops import speckle as jspeckle
     from ros_gpu_stereo_processor_tpu.parallel import frontend as jpar
     from ros_gpu_stereo_processor_tpu.parallel.mesh import make_mesh as jax_mesh
@@ -235,10 +246,15 @@ def cpu_slam():
                             device="cpu")
 
 
-def _eager_ba(arrays, cam, iters, device="cpu"):
+def _eager_ba(arrays, cam, iters, device="cpu", kf=None):
+    """The window's solve run eagerly: ``BA.bundle_adjust``, or with ``kf``
+    (a ``kf`` line) ``bundle_adjust_sharded``; and each landmark's rms."""
     R, t, pts, obs, mask, prior = (torch.from_numpy(a).to(device) for a in arrays)
     p = TBA.BAProblem(R, t, pts, obs, mask, *cam)
-    pf, _ = TBA.bundle_adjust(p, iters=iters, point_prior=prior)
+    if kf is None:
+        pf, _ = TBA.bundle_adjust(p, iters=iters, point_prior=prior)
+    else:
+        pf, _ = bundle_adjust_sharded(p, kf, iters=iters, point_prior=prior)
     r, _ = TBA.reprojection_residuals(pf)
     rn2 = torch.sum(r * r, -1)
     rms = torch.sqrt(torch.sum(rn2 * mask, 0) / torch.clamp(torch.sum(mask, 0), min=1.0))
@@ -271,6 +287,71 @@ def test_ba_solves_cached_per_window_shape(cpu_slam):
     assert len(cpu_slam._ba_solves) == 4
     assert all(cpu_slam._ba_solve(M) is fn for M, fn in first.items())
     assert all(isinstance(fn, graphs.Captured) for fn in first.values())
+
+
+@pytest.fixture(scope="module")
+def cpu_kf_slam():
+    return tslam.StereoSlam(_model(), tslam.SlamConfig(),
+                            T.PipelineConfig(speckle=T.SpeckleConfig(max_speckle_size=0)),
+                            mesh=make_mesh(2, ("kf",), devices=["cpu"] * 2))
+
+
+@needs_jax
+@pytest.mark.parametrize("M", [2, 5])
+def test_sharded_ba_entry_matches_eager_and_jax(cpu_kf_slam, M):
+    """The sharded BA entry for an M-keyframe window on a CPU ``kf`` line
+    of 2 equals eager ``bundle_adjust_sharded`` (and the per-landmark rms
+    beside it) exactly, and the JAX ``bundle_adjust_sharded`` on a 2-device
+    ``kf`` mesh within JAX's bars: t and R atol 1e-3, points 5e-3."""
+    slam, arrays = cpu_kf_slam, _window(M)
+    iters = slam.config.ba_iters
+    got = slam._ba_solve(M)(*arrays)
+    want = _eager_ba(arrays, slam._cam(), iters, kf=slam._ba_mesh)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    R, t, pts, obs, mask, prior = (jnp.asarray(a) for a in arrays)
+    jp = JBA.BAProblem(R=R, t=t, points=pts, obs=obs, mask=mask, fx=110.0, cx=64.0, cy=48.0)
+    jf, _ = jax_sharded(jp, jax_mesh(2, ("kf",)), iters=iters, point_prior=prior)
+    for g, w, atol in zip(got[:3], (jf.R, jf.t, jf.points), (1e-3, 1e-3, 5e-3)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=atol)
+
+
+def test_sharded_ba_solves_cached_per_window_shape(cpu_kf_slam):
+    """Windows of 2–5 keyframes make 4 sharded entries, each reused, keyed
+    by the line's size beside the single-device solves' None, and each
+    solving over the line."""
+    slam = cpu_kf_slam
+    slam._ba_solves.clear()
+    first = {M: slam._ba_solve(M) for M in (2, 3, 4, 5)}
+    assert len(slam._ba_solves) == 4
+    assert all(slam._ba_solve(M) is fn for M, fn in first.items())
+    assert all(isinstance(fn, graphs.Captured) for fn in first.values())
+    assert all(fn.fn.keywords["mesh"] is slam._ba_mesh for fn in first.values())
+    cfg = slam.config
+    assert (5, cfg.ba_landmarks, 2, cfg.ba_iters, *slam._cam()) in slam._ba_solves
+    plain = tslam.StereoSlam(_model(), cfg, T.PipelineConfig(
+        speckle=T.SpeckleConfig(max_speckle_size=0)), device="cpu")
+    assert plain._ba_solve(5).fn.keywords["mesh"] is None
+    assert list(plain._ba_solves) == [(5, cfg.ba_landmarks, None, cfg.ba_iters,
+                                       *plain._cam())]
+
+
+@pytest.mark.parametrize("devices, one", [(["cpu"] * 4, True), (["cpu:0", "cpu:1"] * 2, False),
+                                          (["cpu:0", "cpu:0", "cpu:1", "cpu:1"], False)])
+def test_on_one_device_decides_capture(devices, one):
+    """A mesh whose entries are one device in this process may be captured:
+    the pipeline's mesh step is a :class:`graphs.Captured` exactly then, and
+    the ``kf`` and ``rows`` lines of a 2 × 2 mesh follow their own entries."""
+    mesh = make_mesh(4, ("kf", "rows"), shape=(2, 2), devices=devices)
+    assert mesh.on_one_device() == one
+    assert mesh.along("rows").on_one_device() == (len(set(devices[:2])) == 1)
+    assert mesh.along("kf").on_one_device() == (devices[0] == devices[2])
+    rows = make_mesh(4, ("rows",), devices=devices)
+    pipe = T.StereoPipeline(_model(), T.PipelineConfig(
+        speckle=T.SpeckleConfig(max_speckle_size=0)), mesh=rows)
+    step = pipe._get_variant(T.Outputs.of("disparity"), "mono8")
+    assert isinstance(step, graphs.Captured) == one
+    pipe.senders.shutdown()
 
 
 # ---------------------------------------------------------------------------
@@ -361,3 +442,28 @@ def test_ba_solve_captured_per_window(dev):
                 assert torch.equal(_bits(g), _bits(w))
         assert slam._ba_solve(M).graph_count() == 1
     assert len(slam._ba_solves) == 4
+
+
+@pytest.mark.cuda
+def test_sharded_ba_captured_on_one_card(dev, monkeypatch):
+    """The landmark-sharded solve on a ``kf`` line of ``["cuda:0"] * 2``:
+    the first call per window shape runs eagerly and captures, each later
+    call is one graph replay; every result equals eager
+    ``bundle_adjust_sharded`` bit for bit."""
+    replays = []
+    real = torch.cuda.CUDAGraph.replay
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay",
+                        lambda self: (replays.append(1), real(self))[1])
+    slam = tslam.StereoSlam(_model(), tslam.SlamConfig(),
+                            mesh=make_mesh(2, ("kf",), devices=[dev] * 2))
+    for M in (2, 3, 4, 5):
+        arrays = _window(M)
+        want = _eager_ba(arrays, slam._cam(), slam.config.ba_iters, dev, kf=slam._ba_mesh)
+        before = len(replays)
+        for _ in range(3):
+            got = slam._ba_solve(M)(*arrays)
+            for g, w in zip(got, want):
+                assert torch.equal(_bits(g), _bits(w))
+        assert len(replays) - before == 2
+        assert slam._ba_solve(M).graph_count() == 1
+    assert len(slam._ba_solves) == 4 and all(k[2] == 2 for k in slam._ba_solves)

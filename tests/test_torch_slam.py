@@ -294,6 +294,9 @@ def test_kf_mesh_axis_and_missing_cuda_raise():
     js = jax_slam(mesh=jax_mesh(2, ("kf",)))
     assert_same_run(_step_all(js, frames), _step_all(ts, frames), js, ts, atol=KF_MESH_ATOL)
     assert len(ts.store) >= 3
+    # the line is one device in this process: the solves went through the
+    # sharded entries (graph replays on a card), none through the single-device BA
+    assert ts._ba_solves and all(k[2] == 2 for k in ts._ba_solves)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             T.StereoSlam(port_model(), T.SlamConfig())
