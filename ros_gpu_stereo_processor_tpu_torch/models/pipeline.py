@@ -20,6 +20,12 @@ reference's orchestrator ``StereoProcessor::imageCb``
     is captured the same way; a line over several devices or processes
     runs eagerly.  Every frame's outputs are its own, however long they
     are held.
+  * While the port's recorder is on (utils/timing.py), ``process_batch``
+    records ``step.batch`` (its pairs), ``process`` records ``step.frame``
+    (the header's ``seq``) and its wait for the oldest frame,
+    ``step.in_flight_wait``, and ``enqueue_send`` records
+    ``publish.enqueue`` (the header's ``seq``) with its children
+    ``publish.wire``, ``publish.copy_start`` and ``publish.submit``.
 
 A pipeline runs on the card (``device="cuda"``, the default) unless the
 caller asks for ``device="cpu"``.  There is no device switch beyond that:
@@ -74,7 +80,7 @@ from ros_gpu_stereo_processor_tpu_torch.ops import speckle as speckle_ops
 from ros_gpu_stereo_processor_tpu_torch.ops import stereobm_kernel
 from ros_gpu_stereo_processor_tpu_torch.parallel import frontend as par
 from ros_gpu_stereo_processor_tpu_torch.parallel.mesh import Mesh
-from ros_gpu_stereo_processor_tpu_torch.utils import graphs
+from ros_gpu_stereo_processor_tpu_torch.utils import graphs, timing
 from ros_gpu_stereo_processor_tpu_torch.utils import msgs as msgs_mod
 from ros_gpu_stereo_processor_tpu_torch.utils.hostcopy import start_host_copy, upload
 from ros_gpu_stereo_processor_tpu_torch.utils.calib import StereoCameraModel
@@ -89,6 +95,14 @@ from ros_gpu_stereo_processor_tpu_torch.utils.msgs import (
 from ros_gpu_stereo_processor_tpu_torch.utils.timing import StageTimer, timed
 
 logger = logging.getLogger("tpu_stereo")
+# the recorder's names (utils/timing.py)
+_STEP_BATCH = timing.intern("step.batch")
+_STEP_FRAME = timing.intern("step.frame")
+_IN_FLIGHT_WAIT = timing.intern("step.in_flight_wait")
+_ENQUEUE = timing.intern("publish.enqueue")
+_WIRE = timing.intern("publish.wire")
+_COPY_START = timing.intern("publish.copy_start")
+_SUBMIT = timing.intern("publish.submit")
 
 SIDES = ("left", "right")
 
@@ -509,6 +523,7 @@ class StereoPipeline:
         variant and shape runs eagerly, then captures), as on a mesh whose
         band line is that card; on a line over several devices it runs
         eagerly."""
+        s = timing.begin(_STEP_FRAME, -1 if header is None else header.seq) if timing.ON else -1
         out = self._step(left, right, outputs, encoding)
         devices = [self.device] if self.mesh is None else self._line.unique_devices()
         events = []
@@ -523,7 +538,12 @@ class StereoPipeline:
         depth = max(1, self.config.max_in_flight)
         self._in_flight.append(res)
         while len(self._in_flight) > depth:
+            w = timing.begin(_IN_FLIGHT_WAIT) if s >= 0 else -1
             self._in_flight.popleft().block_until_ready()
+            if w >= 0:
+                timing.end(w)
+        if s >= 0:
+            timing.end(s)
         return res
 
     def process_batch(
@@ -540,7 +560,11 @@ class StereoPipeline:
         ``jit(lax.scan)``.  Returns a dict of stacked outputs (B leading
         axis), fresh on every call.  On a line over several devices or
         processes the steps run eagerly."""
-        return self._get_variant(outputs, encoding, batch=True)(lefts, rights)
+        s = timing.begin(_STEP_BATCH, n=len(lefts)) if timing.ON else -1
+        out = self._get_variant(outputs, encoding, batch=True)(lefts, rights)
+        if s >= 0:
+            timing.end(s)
+        return out
 
     def timed_process(self, left, right, outputs, encoding="mono8", header=None):
         """Synchronous process with timing — the TIMING instrumentation hook
@@ -569,6 +593,7 @@ class StereoPipeline:
         frame's events and the disparity's wire codec; a sender worker
         builds and publishes each message once that copy has landed."""
         h = res.header
+        s = timing.begin(_ENQUEUE, h.seq) if timing.ON else -1
         cfg = self.config.stereobm
         H, W = self.height, self.width
 
@@ -586,11 +611,14 @@ class StereoPipeline:
             elif name.startswith(("color_", "rect_color_")) or name == "disparity_vis":
                 sends.append((name, (res.outputs[name],), img_builder("rgb8")))
             elif name == "disparity":
+                w = timing.begin(_WIRE, h.seq) if s >= 0 else -1
                 wire = self._wire_disparity(res.outputs["disparity"])
                 if ready is not None:
                     # the wire codec is enqueued after the frame's event
                     ready = torch.cuda.Event()
                     ready.record()
+                if w >= 0:
+                    timing.end(w)
                 sends.append((name, (wire,), lambda a: make_disparity_message(
                     h, a, cfg, self.fx, self.baseline, (H, W))))
             elif name == "pointcloud":
@@ -599,12 +627,20 @@ class StereoPipeline:
                     arrays = arrays + (res.outputs["pointcloud_rgb"],)
                 sends.append((name, arrays, pc_builder))
         # after every device the frame used (a mesh over several cards)
+        w = timing.begin(_COPY_START, h.seq) if s >= 0 else -1
         copy = start_host_copy([t for _, ts, _ in sends for t in ts],
                                (ready,) + res.band_events)
+        if w >= 0:
+            timing.end(w)
+        w = timing.begin(_SUBMIT, h.seq) if s >= 0 else -1
         start = 0
         for name, ts, build in sends:
-            self.senders.enqueue_copy(name, copy.part(start, start + len(ts)), build)
+            self.senders.enqueue_copy(name, copy.part(start, start + len(ts)), build, h.seq)
             start += len(ts)
+        if w >= 0:
+            timing.end(w)
+        if s >= 0:
+            timing.end(s)
 
     def _wire_disparity(self, disp: torch.Tensor) -> torch.Tensor:
         """Quantize disparity on the device per ``config.disparity_wire``

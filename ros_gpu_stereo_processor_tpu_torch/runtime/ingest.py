@@ -16,6 +16,17 @@ package) provides
     ``frames_prefetch()`` stages pairs on an uploader thread through pinned
     host buffers and its own CUDA stream.
 
+While the port's recorder is on (``utils/timing.py``), ``feed`` and
+``frames_prefetch`` record their spans, instants and gauges, each pair's
+under its ``seq``: ``ingest.feed`` (wall and thread CPU; the call that
+completes a pair carries its ``seq``) with its child ``ingest.ring_push``
+and the instant ``ingest.pair``; on the uploader thread
+``upload.ring_wait``, ``upload.pin_wait``, ``upload.stage`` and
+``upload.put_wait``; on the consumer's ``ingest.staged_wait`` and the
+instant ``ingest.deliver``; the gauges ``ring.depth`` (at each push and
+peek) and ``staged.depth`` (at each put).  The ring's and the pairer's
+counts are watched (``timing.watch``).
+
 The library is compiled with ``g++`` at first use into the package's
 git-ignored ``build/`` directory, under a name keyed by a hash of the
 source, and loaded with ctypes; on a machine with no compiler the
@@ -41,6 +52,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from ros_gpu_stereo_processor_tpu_torch.utils import timing
 from ros_gpu_stereo_processor_tpu_torch.utils.device import require_device
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -51,6 +63,18 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-Wall", "-Wextra", "-fPIC", "-shared")
 _lock = threading.Lock()
 _lib = None
 _lib_err: Optional[str] = None
+# the recorder's names (utils/timing.py)
+_FEED = timing.intern("ingest.feed")
+_RING_PUSH = timing.intern("ingest.ring_push")
+_PAIR = timing.intern("ingest.pair", timing.INSTANT)
+_RING_WAIT = timing.intern("upload.ring_wait")
+_PIN_WAIT = timing.intern("upload.pin_wait")
+_STAGE = timing.intern("upload.stage")
+_PUT_WAIT = timing.intern("upload.put_wait")
+_STAGED_WAIT = timing.intern("ingest.staged_wait")
+_DELIVER = timing.intern("ingest.deliver", timing.INSTANT)
+_RING_DEPTH = timing.intern("ring.depth", timing.GAUGE)
+_STAGED_DEPTH = timing.intern("staged.depth", timing.GAUGE)
 
 
 def _build_lib() -> Path:
@@ -336,14 +360,27 @@ class StreamingIngest:
         self.pairer = StereoPairer(shape, exact=exact, slop=slop, queue_size=queue_size)
         self.ring = FrameRing(capacity, shape, drop_on_full=drop_on_full)
         self._seq = 0
+        timing.watch("ring", self.ring.stats)
+        timing.watch("pairer", self.pairer.stats)
 
     def feed(self, side: str, image: np.ndarray, stamp: float) -> None:
+        s = timing.begin(_FEED, cpu=True) if timing.ON else -1
         self.pairer.add(side, image, stamp)
         got = self.pairer.get()
+        seq = -1
         if got is not None:
             l, r, t = got
-            self.ring.push(l, r, t, self._seq)
+            seq = self._seq
+            if s >= 0:
+                timing.instant(_PAIR, seq)
+                p = timing.begin(_RING_PUSH, seq)
+            self.ring.push(l, r, t, seq)
+            if s >= 0:
+                timing.end(p)
+                timing.gauge(_RING_DEPTH, len(self.ring))
             self._seq += 1
+        if s >= 0:
+            timing.end(s, seq)
 
     def _upload(self, img: np.ndarray) -> torch.Tensor:
         """A copy of ``img`` on the device, finished when this returns (the
@@ -409,14 +446,23 @@ class StreamingIngest:
                 pinned.append(torch.empty((2,) + self.shape, dtype=torch.uint8).pin_memory())
                 pin_events.append(None)
 
-        def stage(k: int, l: np.ndarray, r: np.ndarray):
+        def stage(k: int, l: np.ndarray, r: np.ndarray, seq: int, on: bool):
             """The pair on the device from pinned buffer k (CUDA), or copied
             into CPU tensors; returns (left, right, event or None), ``right``
-            None when ``left`` is the stacked (2, H, W) copy."""
+            None when ``left`` is the stacked (2, H, W) copy.  ``on``: the
+            recorder was on when the pair was peeked."""
             if not cuda:
-                return torch.from_numpy(l.copy()), torch.from_numpy(r.copy()), None
+                s = timing.begin(_STAGE, seq) if on else -1
+                out = torch.from_numpy(l.copy()), torch.from_numpy(r.copy()), None
+                if s >= 0:
+                    timing.end(s)
+                return out
             if pin_events[k] is not None:
+                s = timing.begin(_PIN_WAIT, seq) if on else -1
                 pin_events[k].synchronize()       # its last copy has finished
+                if s >= 0:
+                    timing.end(s)
+            s = timing.begin(_STAGE, seq) if on else -1
             buf = pinned[k]
             host = buf.numpy()
             host[0], host[1] = l, r
@@ -428,6 +474,8 @@ class StreamingIngest:
             ev = torch.cuda.Event()
             ev.record(upload_stream)
             pin_events[k] = ev
+            if s >= 0:
+                timing.end(s)
             return left, right, ev
 
         def uploader():
@@ -441,16 +489,25 @@ class StreamingIngest:
                 with ctx:
                     k = 0
                     while not stop.is_set():
+                        on = timing.ON
+                        s = timing.begin(_RING_WAIT) if on else -1
                         got = self.ring.peek(timeout)
+                        if on:
+                            timing.end(s)
+                            timing.gauge(_RING_DEPTH, len(self.ring))
                         if got is None:
                             break
                         l, r, stamp, seq = got
                         try:
-                            item = stage(k, l, r) + (stamp, seq)
+                            item = stage(k, l, r, seq, on) + (stamp, seq)
                         finally:
                             self.ring.release()      # staged: the slot is free
                         k = (k + 1) % max(1, len(pinned))
+                        s = timing.begin(_PUT_WAIT, seq) if on else -1
                         _put_until(q, item, stop)
+                        if on:
+                            timing.end(s)
+                            timing.gauge(_STAGED_DEPTH, q.qsize())
             except Exception as e:       # handed to the consumer, which raises it
                 _put_until(q, _Failed(e), stop)
             finally:
@@ -461,7 +518,10 @@ class StreamingIngest:
         try:
             consumer = torch.cuda.current_stream(self.device) if cuda else None
             while True:
+                s = timing.begin(_STAGED_WAIT) if timing.ON else -1
                 item = q.get()
+                if s >= 0:
+                    timing.end(s)
                 if item is end:
                     break
                 if isinstance(item, _Failed):
@@ -474,6 +534,8 @@ class StreamingIngest:
                         right.record_stream(consumer)
                 if right is None:        # stacked: the rows of one (2, H, W) copy
                     left, right = left[0], left[1]
+                if s >= 0:
+                    timing.instant(_DELIVER, seq)
                 yield left, right, stamp, seq
         finally:
             stop.set()

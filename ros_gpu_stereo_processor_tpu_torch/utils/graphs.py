@@ -38,6 +38,12 @@ the unit the scaling harness (parallel/scaling.py), the A/B harness
   * A capture that fails raises :class:`CaptureError` naming the function
     and the line of the op that failed.  Nothing runs the eager function
     in a graph's place on the card.
+  * While the port's recorder is on (utils/timing.py), each replay records
+    ``graph.load`` (the input copies), ``graph.replay`` (the
+    ``CUDAGraph.replay()`` call alone) and ``graph.clone`` (the arena's
+    clone), and each new signature ``graph.capture`` (its eager run and
+    the capture) and the counter ``graph.captures``, all tagged with the
+    graph's name.  A capture after warm-up is a recompile.
 
 On the CPU (inputs, or the given device, not CUDA) the function is simply
 called: graphs are a CUDA mechanism.
@@ -65,6 +71,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ros_gpu_stereo_processor_tpu_torch.ops import _build
+from ros_gpu_stereo_processor_tpu_torch.utils import timing
 from ros_gpu_stereo_processor_tpu_torch.utils.hostcopy import staged
 
 _ALIGN = 64   # bytes: every output's offset in the arena
@@ -73,6 +80,12 @@ _ALIGN = 64   # bytes: every output's offset in the arena
 # not fall inside another thread's capture (SLAM's mapping thread captures
 # its BA windows while the tracking thread may capture a new variant)
 _capture_lock = threading.Lock()
+# the recorder's names (utils/timing.py)
+_LOAD = timing.intern("graph.load")
+_REPLAY = timing.intern("graph.replay")
+_CLONE = timing.intern("graph.clone")
+_CAPTURE = timing.intern("graph.capture")
+_CAPTURES = timing.intern("graph.captures", timing.COUNTER)
 
 
 class CaptureError(RuntimeError):
@@ -139,6 +152,7 @@ class _Graph:
     def __init__(self, name: str, fn: Callable, inputs: List[torch.Tensor],
                  spec, device: torch.device):
         self.name, self.fn, self.spec, self.device = name, fn, spec, device
+        self.tag = timing.intern(name, timing.TAG)
         self.inputs = [torch.empty(x.shape, dtype=x.dtype, device=device) for x in inputs]
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.arena = None
@@ -196,10 +210,20 @@ class _Graph:
         self.graph, self.launches = graph, launches
 
     def replay(self, inputs: List[torch.Tensor]):
+        on = timing.ON
+        s = timing.begin(_LOAD, tag=self.tag) if on else -1
         self._load(inputs)
+        if on:
+            timing.end(s)
+            s = timing.begin(_REPLAY, tag=self.tag)
         self.graph.replay()
+        if on:
+            timing.end(s)
         _build.add_launches(self.launches)
+        s = timing.begin(_CLONE, tag=self.tag) if on else -1
         arena = None if self.arena is None else self.arena.clone()
+        if on:
+            timing.end(s)
         return _unpack(arena, self.layout, self.out_spec)
 
 
@@ -243,7 +267,11 @@ class Captured:
             g = self._graphs.get(key)
             if g is None:
                 g = _Graph(self.name, self.fn, leaves, spec, dev)
+                s = timing.begin(_CAPTURE, tag=g.tag) if timing.ON else -1
                 out = g.first(leaves)
+                if s >= 0:
+                    timing.end(s)
+                    timing.count(_CAPTURES, tag=g.tag)
                 self._graphs[key] = g
                 return out
             return g.replay(leaves)

@@ -84,6 +84,10 @@ class HostCopy:
         """Copies ``start`` to ``stop`` (exclusive), under the same event."""
         return HostCopy(self.host[start:stop], self.event)
 
+    def ready(self) -> bool:
+        """True when the copies have landed (or none was from a card)."""
+        return self.event is None or self.event.query()
+
     def result(self) -> Tuple[np.ndarray, ...]:
         """Wait for the copies' event and return the arrays, in the order
         of the sources."""

@@ -24,7 +24,15 @@ import torch
 
 from ros_gpu_stereo_processor_tpu_torch.config import StereoBMConfig
 from ros_gpu_stereo_processor_tpu_torch.ops import color as color_ops
+from ros_gpu_stereo_processor_tpu_torch.utils import timing
 from ros_gpu_stereo_processor_tpu_torch.utils.hostcopy import Events, HostCopy, start_host_copy
+
+# the recorder's names (utils/timing.py)
+_SENDER_DEPTH = timing.intern("sender.depth", timing.GAUGE)
+_QUEUED = timing.intern("sender.queued")
+_COPY_WAIT = timing.intern("sender.copy_wait")
+_BUILD = timing.intern("sender.build")
+_PUBLISH = timing.intern("sender.publish")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,6 +181,14 @@ class SenderPool:
     copies, builds the message and calls the publisher registered for
     ``name`` (if any).  ``wait_all()`` ≙ the reference's
     ``waitForAllStreams`` + sender drain (src/GPUStereoProcessor.cpp:348-354).
+
+    While the port's recorder is on (utils/timing.py), a send records the
+    gauge ``sender.depth`` (unsettled sends) at its submit, and its worker
+    records, under the send's ``seq`` and tagged with the output's name,
+    ``sender.queued`` (submit to the worker's start), ``sender.copy_wait``
+    (the wait for the host copy, wall and thread CPU; ``n`` 1 where the copy
+    had not landed when the wait began, else 0), ``sender.build`` and
+    ``sender.publish`` (the publisher callback).
     """
 
     def __init__(self, max_workers: int = 2):
@@ -193,25 +209,49 @@ class SenderPool:
         JAX pool's ``copy_to_host_async`` does."""
         return self.enqueue_copy(name, start_host_copy(arrays, ready), build_fn)
 
-    def enqueue_copy(self, name: str, copy: HostCopy,
-                     build_fn: Callable[..., Any]) -> "concurrent.futures.Future":
+    def enqueue_copy(self, name: str, copy: HostCopy, build_fn: Callable[..., Any],
+                     seq: int = -1) -> "concurrent.futures.Future":
         """:meth:`enqueue` of host copies already started: a worker waits
-        for ``copy``, builds ``build_fn(*copy.result())`` and publishes it."""
+        for ``copy``, builds ``build_fn(*copy.result())`` and publishes it.
+        ``seq``: the frame's pair, for the recorder."""
         self._sent[name] = False
+        t_sub = timing.now() if timing.ON else 0
+        tag = timing.intern(name, timing.TAG) if t_sub else -1
+        fut = self._pool.submit(self._send, name, copy, build_fn, seq, t_sub, tag)
+        with self._lock:
+            self._inflight.append(fut)
+            depth = len(self._inflight)
+        if t_sub:
+            timing.gauge(_SENDER_DEPTH, depth)
+        fut.add_done_callback(self._settled)
+        return fut
 
-        def work():
-            msg = build_fn(*copy.result())
+    def _send(self, name: str, copy: HostCopy, build_fn: Callable[..., Any], seq: int,
+              t_sub: int, tag: int):
+        """A worker's send; ``t_sub``: the submit's time on the recorder's
+        clock, 0 where the recorder was off."""
+        s = -1
+        try:
+            if t_sub:
+                timing.span(_QUEUED, t_sub, timing.now(), seq, tag=tag)
+                s = timing.begin(_COPY_WAIT, seq, n=0 if copy.ready() else 1, tag=tag,
+                                 cpu=True)
+            arrays = copy.result()
+            if t_sub:
+                timing.end(s)
+                s = timing.begin(_BUILD, seq, tag=tag)
+            msg = build_fn(*arrays)
+            if t_sub:
+                timing.end(s)
+                s = timing.begin(_PUBLISH, seq, tag=tag)
             pub = self._publishers.get(name)
             if pub is not None:
                 pub(msg)
             self._sent[name] = True
             return msg
-
-        fut = self._pool.submit(work)
-        with self._lock:
-            self._inflight.append(fut)
-        fut.add_done_callback(self._settled)
-        return fut
+        finally:
+            if s >= 0:
+                timing.end(s)
 
     def _settled(self, fut) -> None:
         """Forget a send that succeeded: its message, and the pinned host
