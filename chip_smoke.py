@@ -22,7 +22,11 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      ``refine_disparity``, ``uniqueness_ratio=15``; raw maps exact and
      device time on a mesh band's 134×752 launch), K3 speckle labels
      (exact at 1, 2, one short of the rounds the frame needs, those rounds
-     and 64), and the SGM kernels K4 cost + down path (the cost stage's and
+     and 64), SZ the speckle sizing on K3's labels (both outputs exact at
+     T 0, 800, n − 1 and n, at 752×480, on a BM frame at KITTI's 1242×375
+     and on one component over that whole frame; timed on each beside the
+     old plain-torch ``index_add_`` chain, its ``library_ms``), and the SGM
+     kernels K4 cost + down path (the cost stage's and
      the down walk's device time apart, and the walk's ns per step; and its
      cost stage alone, the 2-path route's, against K4's cost volume), K5
      path aggregation (the frame's three calls, each also timed apart with
@@ -36,8 +40,10 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      speckle filter from a BM frame's disparity) and the band label rounds
      beside it, exact at the same kinds of round counts (up to 480 and 64);
      K3, K7 and the band label rounds 2 device launches per call (the
-     persistent walk and a memset), K4 2 (cost stage, down walk), the
-     others 1;
+     persistent walk and a memset), SZ 3 (a memset, the count and the
+     keep-and-fill passes), K4 2 (cost stage, down walk), the others 1.
+     Below, SZ launches wherever K3 does, once with each K3 launch (the
+     single-device speckle filter), and never on a mesh;
   4. runs ``StereoPipeline`` on the card at 752×480, ``Outputs.all()``, over
      synthetic frames, for each main path:
        * block matching (default config, 64 disparities): 21 frames, each
@@ -278,6 +284,7 @@ MULTIHOST_TIMEOUT_S = 300
 BANDS = 4
 SLABS = ((64, BANDS), (128, 8))   # (disparities, slabs): BM defaults; BASELINE config 3
 BAND_ROWS = 134     # a mesh band's launch: 480 / BANDS rows and 2 x 7 halo rows
+SIZING_KITTI = (375, 1242)   # SZ's second shape: KITTI's rectified frame
 KERNEL_REPS = 20
 PLAIN_REPS = 3
 PROFILER_WINDOWS = 8   # windows tried when the profiler drops a window's events
@@ -326,6 +333,9 @@ SOURCES = {   # key: (C entry point, CUDA source, TPU kernel it replaces)
     # the diagonal pair walk of 8-path SGM: no TPU kernel, it replaces the
     # JAX pipeline's jnp diagonal scans
     "DG": ("sgm_aggregate_diagonal", "csrc/sgm_diagonal.cu", "ops/sgm.py:75"),
+    # the speckle filter's sizing and masking: no TPU kernel, it replaces
+    # the JAX package's plain jnp sizing (two sorts)
+    "SZ": ("speckle_sizing", "csrc/speckle.cu", "ops/speckle.py:143"),
 }
 
 
@@ -670,6 +680,62 @@ def check_sgm_kernels(torch, sgm_kernel, stereobm, rl, rect, cfg, p1, p2):
     return out
 
 
+def check_sizing(torch, port, speckle, speckle_kernel, stereobm_kernel, rl, disp, valid, sp_cfg,
+                 dev):
+    """SZ against its plain version on the card, both outputs exact at T 0,
+    the config's, n − 1 and n, on K3's labels of the BM frame at 752×480,
+    of a BM frame at KITTI's 1242×375, and of one component over the whole
+    1242×375 frame (every pixel on one counter); then its times on each
+    (a memset and two kernels: 3 device launches a call), with the old
+    plain-torch chain (``_keep_large_components``, ``& valid``, ``where``:
+    the plain version, which the port no longer calls on the card) as its
+    ``library_ms`` yardstick."""
+    kh, kw = SIZING_KITTI
+    left, right, _ = port.synthetic_stereo_pair(kh, kw, 48, seed=200)
+    kd, kv = stereobm_kernel.compute_disparity_fused(
+        torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev), port.StereoBMConfig())
+    first = f"{disp.shape[1]}x{disp.shape[0]}"
+    cases = {first: (disp, valid), f"{kw}x{kh}": (kd, kv),
+             "whole frame": (torch.full((kh, kw), 12.5, device=dev),
+                             torch.ones((kh, kw), dtype=torch.bool, device=dev))}
+    fill = -1.0
+    out = {}
+    for name, (d, v) in cases.items():
+        lab = speckle_kernel.labels(d, v, sp_cfg.max_diff, sp_cfg.propagation_iters)
+        n = lab.numel()
+        err = 0.0
+        for T in (0, sp_cfg.max_speckle_size, n - 1, n):
+            got = speckle_kernel.sizing(d, v, lab, T, fill)
+            want = speckle._sizing(d, v, lab, T, fill)
+            torch.cuda.synchronize()
+            require_equal(f"SZ {name} disparity at T {T}", got[0], want[0])
+            require_equal(f"SZ {name} validity at T {T}", got[1], want[1])
+            err = max(err, max_abs(got[0], want[0]))
+        T = sp_cfg.max_speckle_size
+        kept = float(speckle_kernel.sizing(d, v, lab, T, fill)[1].float().mean())
+
+        def kernel(d=d, v=v, lab=lab):
+            return speckle_kernel.sizing(d, v, lab, T, fill)
+
+        def chain(d=d, v=v, lab=lab):
+            return speckle._sizing(d, v, lab, T, fill)
+
+        lib_dev_ms, lib_launches = device_cost(torch, chain, KERNEL_REPS)
+        b_ms, by = rl.model_bound(rl.sizing_model(*lab.shape))
+        out[name] = {"max_abs_err": err, **timed(torch, kernel, chain, 3),
+                     "bound_ms": b_ms, "bound_by": by,
+                     "library_ms": cuda_ms(torch, chain, KERNEL_REPS),
+                     "library_device_ms": lib_dev_ms,
+                     "library_device_launches_per_call": lib_launches,
+                     "kept_share": kept}
+        log(f"SZ sizing {name}: exact at T 0, {T}, {n - 1}, {n}; device "
+            f"{out[name]['device_ms']:.5f} ms against the old chain's {lib_dev_ms:.5f} ms;",
+            out[name])
+    row = dict(out[first])
+    row["shapes"] = {k: v for k, v in out.items() if k != first}
+    return row
+
+
 def check_k7(torch, speckle, speckle_kernel, frontend, rl, mesh, disp, valid, sp_cfg):
     """K7 and the band label rounds on band 1 of the mesh's split of one BM
     frame, against their plain versions on the card, exact at several round
@@ -887,7 +953,7 @@ def run_slam(torch, port, _build, features, timing, evaluate, calib, frames, gt,
     launches = {k: kern.launches for k, kern in kernels.items()}
     log(f"SLAM launches over {len(frames)} frames: {launches}")
     for k, n in launches.items():
-        want = len(frames) if k in ("K1", "K2", "K3") else 0
+        want = len(frames) if k in ("K1", "K2", "K3", "SZ") else 0
         if n != want:
             raise AssertionError(f"SLAM: {k} launched {n} times, not {want}")
     if len(infos) != len(frames) or not all(i["tracked"] for i in infos[1:]):
@@ -1110,7 +1176,8 @@ def run_bilateral_mesh(torch, _build, port, new_pipe, make_mesh, frames, outputs
     gpipe = new_pipe(config=cfg, mesh=make_mesh(BANDS, devices=[dev] * BANDS))
     one = new_pipe(config=cfg, device=dev)
     per_frame = {"K1": (bm_kernels["K1"][0], 2 * BANDS),
-                 "K2": (bm_kernels["K2"][0], BANDS), "K3": (bm_kernels["K3"][0], 0)}
+                 "K2": (bm_kernels["K2"][0], BANDS), "K3": (bm_kernels["K3"][0], 0),
+                 "SZ": (bm_kernels["SZ"][0], 0)}
     _, got, launches = drive(torch, _build, gpipe, frames[:2], outputs, per_frame, 2)
     for i in range(2):
         compare_outputs(got[i], one.process(*frames[i], outputs).fetch(),
@@ -1134,7 +1201,7 @@ def run_slab(torch, _build, port, new_pipe, make_mesh, frames, outputs, kern, de
         gpipe = new_pipe(config=cfg, mesh=make_mesh(n, devices=[dev] * n), shard_mode="disp")
         cpipe = new_pipe(config=cfg, mesh=make_mesh(n, devices=["cpu"] * n), shard_mode="disp")
         per_frame = {"K1": (kern["K1"], 2 * n), "K2": (kern["K2"], 0), "K3": (kern["K3"], 0),
-                     "K7": (kern["K7"], n), "BL": (kern["BL"], None)}
+                     "SZ": (kern["SZ"], 0), "K7": (kern["K7"], n), "BL": (kern["BL"], None)}
         ms, got, launches[label] = drive(torch, _build, gpipe, sframes, outputs, per_frame,
                                          SLAB_COMPARED)
         log(f"{label} launches over {len(sframes)} frames: {launches[label]}")
@@ -1234,10 +1301,11 @@ def run_slam_meshes(torch, port, _build, evaluate, calib, make_mesh, frames, gt,
     lines, launches = [], {}
     for label, mesh, want in (
             ("slam kf", make_mesh(2, ("kf",), devices=[dev] * 2),
-             {"K1": n, "K2": n, "K3": n, "K7": 0, "BL": 0}),
+             {"K1": n, "K2": n, "K3": n, "SZ": n, "K7": 0, "BL": 0}),
             ("slam kf rows", make_mesh(8, ("kf", "rows"), shape=(2, BANDS),
                                        devices=[dev] * 2 * BANDS),
-             {"K1": BANDS * n, "K2": BANDS * n, "K3": 0, "K7": BANDS * n, "BL": None})):
+             {"K1": BANDS * n, "K2": BANDS * n, "K3": 0, "SZ": 0, "K7": BANDS * n,
+              "BL": None})):
         torch.cuda.synchronize()
         _build.reset_launch_counts()
         slam, infos, per_frame_ms, windows, ba_calls = slam_mesh_run(
@@ -1423,7 +1491,8 @@ def run_hard(torch, port, _build, features, timing, calib, bench, hard, rendered
     torch.cuda.synchronize()
     launches = {k: kern.launches for k, kern in kernels.items()}
     log(f"hard launches over {n} frames: {launches}")
-    want = {"K1": n, "K2": 0, "K3": n, "K4": n, "K4 cost": 0, "K5": 3 * n, "K6": n, "K7": 0,
+    want = {"K1": n, "K2": 0, "K3": n, "SZ": n, "K4": n, "K4 cost": 0, "K5": 3 * n, "K6": n,
+            "K7": 0,
             "BL": 0, "DG": 0}
     for k, w in want.items():
         if launches[k] != w:
@@ -1550,9 +1619,10 @@ def run_multihost(torch, multihost, make_mesh, dev):
         raise AssertionError(f"multihost: BA {ba} against one process's {ba_one}")
     ranks = [json.loads(tagged(o, "LAUNCHES").split(" ", 1)[1]) for o in outs]
     launches = {}
-    for k in ("K1", "K2", "K3", "K7", "BL"):
+    for k in ("K1", "K2", "K3", "SZ", "K7", "BL"):
         per_rank = [c[SOURCES[k][0]] for c in ranks]
-        if (k == "K3" and any(per_rank)) or (k != "K3" and min(per_rank) < 1):
+        single = k in ("K3", "SZ")
+        if (single and any(per_rank)) or (not single and min(per_rank) < 1):
             raise AssertionError(f"multihost: {k} launched {per_rank} times by the ranks")
         launches[k] = sum(per_rank)
     fps = [float(tagged(o, "FPS").split()[1]) for o in outs]
@@ -1784,7 +1854,7 @@ def run_serve(torch, port, _build, io, calib, kernels, frames, model, work, dev)
     launches = {k: kern.launches for k, kern in kernels.items()}
     log(f"serve launches over {SERVE_FRAMES} frames: {launches}")
     for k, n in launches.items():
-        if n != (SERVE_FRAMES if k in ("K1", "K2", "K3") else 0):
+        if n != (SERVE_FRAMES if k in ("K1", "K2", "K3", "SZ") else 0):
             raise AssertionError(f"serve: {k} launched {n} times")
     native = daemon.ingest.ring._lib is not None and native_available()
     if not native:
@@ -1968,7 +2038,7 @@ def run_publish(torch, port, _build, hostcopy, new_pipe, frames, kernels, dev):
     launches = {k: kern.launches for k, kern in kernels.items()}
     log(f"publish launches over {len(frames)} frames: {launches}")
     for k, n in launches.items():
-        if n != {"K1": 2, "K2": 1, "K3": 1}.get(k, 0) * len(frames):
+        if n != {"K1": 2, "K2": 1, "K3": 1, "SZ": 1}.get(k, 0) * len(frames):
             raise AssertionError(f"publish: {k} launched {n} times")
     if len(set(seen)) != len(seen) or len(seen) != len(outputs.flags) * len(frames):
         raise AssertionError(f"publish: {len(seen)} messages for {len(frames)} frames")
@@ -2072,7 +2142,7 @@ def run_cli(io, calib_yamls, frames, served0, work):
     by_symbol = json.loads(report[0][len("kernel launches: "):])
     launches = {k: by_symbol.get(SOURCES[k][0], 0) for k in SOURCES}
     for sym, n in by_symbol.items():
-        want = CLI_FRAMES if sym in (SOURCES[k][0] for k in ("K1", "K2", "K3")) else 0
+        want = CLI_FRAMES if sym in (SOURCES[k][0] for k in ("K1", "K2", "K3", "SZ")) else 0
         if n != want:
             raise AssertionError(f"cli run: {sym} launched {n} times, not {want}")
     log(f"cli run launches over {CLI_FRAMES} frames: {launches}")
@@ -2678,7 +2748,7 @@ def run_bench(torch, port, bench, dev):
         raise AssertionError(f"bench: kernels {record['kernels']}, device {record['device']}")
     by_symbol = record["kernel_launches"]
     launches = {k: by_symbol.get(SOURCES[k][0], 0) for k in SOURCES}
-    if not all(launches[k] > 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")) or \
+    if not all(launches[k] > 0 for k in ("K1", "K2", "K3", "SZ", "K4", "K5", "K6")) or \
             launches["K7"] or launches["BL"] or launches["DG"]:
         raise AssertionError(f"bench: launches {launches}")
     log(f"bench launches: {launches}")
@@ -2902,6 +2972,11 @@ def main() -> int:
         }
         log(f"K3 speckle labels: exact; converged in {rounds} rounds;", results["K3"])
 
+    # -- SZ speckle sizing ---------------------------------------------------
+    with phase("SZ", seconds):
+        results["SZ"] = check_sizing(torch, port, speckle, speckle_kernel, stereobm_kernel, rl,
+                                     disp, valid, sp, dev)
+
     # -- K4–K6 SGM ----------------------------------------------------------
     with phase("K4-K6", seconds):
         for nd, p1, p2 in ((64, 10.0, 120.0), (64, 7.5, 93.25), (128, 10.0, 120.0)):
@@ -2936,7 +3011,7 @@ def main() -> int:
         cpu_pipe = new_pipe(device="cpu")
         frames = [port.synthetic_stereo_pair(H, W, 48, seed=i)[:2] for i in range(FRAMES)]
         per_frame = {"K1": (k1, 2), "K2": (stereobm_kernel.KERNEL, 1),
-                     "K3": (speckle_kernel.KERNEL, 1)}
+                     "K3": (speckle_kernel.KERNEL, 1), "SZ": (speckle_kernel.SIZING, 1)}
         bm_ms, gpu_out, launches["bm"] = drive(torch, _build, pipe, frames, outputs,
                                                per_frame, COMPARED)
         gpu_bm0 = gpu_out[0]
@@ -2968,7 +3043,8 @@ def main() -> int:
         sframes = [port.synthetic_stereo_pair(H, W, 96, seed=1000 + i)[:2]
                    for i in range(SGM_FRAMES)]
         per_frame = {"K1": (k1, 2), "K2": (stereobm_kernel.KERNEL, 0),
-                     "K3": (speckle_kernel.KERNEL, 1), "K4": (sgm_kernel.COST_DOWN, 1),
+                     "K3": (speckle_kernel.KERNEL, 1), "SZ": (speckle_kernel.SIZING, 1),
+                     "K4": (sgm_kernel.COST_DOWN, 1),
                      "K4 cost": (sgm_kernel.COST, 0), "K5": (sgm_kernel.AGGREGATE, 3),
                      "DG": (sgm_kernel.DIAGONAL, 0), "K6": (sgm_kernel.WTA, 1)}
         sgm_ms, gpu_out, launches["sgm"] = drive(torch, _build, spipe, sframes, outputs,
@@ -3005,7 +3081,8 @@ def main() -> int:
             ppipe = new_pipe(config=cfg, device=dev)
             pcpu = new_pipe(config=cfg, device="cpu")
             per_frame = {"K1": (k1, 2), "K2": (stereobm_kernel.KERNEL, 0),
-                         "K3": (speckle_kernel.KERNEL, 1), "K6": (sgm_kernel.WTA, 1), **kern}
+                         "K3": (speckle_kernel.KERNEL, 1), "SZ": (speckle_kernel.SIZING, 1),
+                         "K6": (sgm_kernel.WTA, 1), **kern}
             p_ms, gpu_out, launches[label] = drive(torch, _build, ppipe, sframes, outputs,
                                                    per_frame, SGM_COMPARED)
             log(f"SGM {paths} paths launches over {SGM_FRAMES} frames: {launches[label]}")
@@ -3030,7 +3107,8 @@ def main() -> int:
         mcpu = new_pipe(mesh=make_mesh(BANDS, devices=["cpu"] * BANDS))
         mframes = frames[:MESH_FRAMES]
         per_frame = {"K1": (k1, 2 * BANDS), "K2": (stereobm_kernel.KERNEL, BANDS),
-                     "K3": (speckle_kernel.KERNEL, 0), "K7": (speckle_kernel.MAXPROP, BANDS),
+                     "K3": (speckle_kernel.KERNEL, 0), "SZ": (speckle_kernel.SIZING, 0),
+                     "K7": (speckle_kernel.MAXPROP, BANDS),
                      "BL": (speckle_kernel.BAND_LABELS, None)}
         mesh_ms, gpu_out, launches["mesh"] = drive(torch, _build, mpipe, mframes, outputs,
                                                    per_frame, MESH_COMPARED)
@@ -3069,7 +3147,8 @@ def main() -> int:
     with phase("slab", seconds):
         lines, more = run_slab(torch, _build, port, new_pipe, make_mesh, frames, outputs,
                                {"K1": k1, "K2": stereobm_kernel.KERNEL,
-                                "K3": speckle_kernel.KERNEL, "K7": speckle_kernel.MAXPROP,
+                                "K3": speckle_kernel.KERNEL, "SZ": speckle_kernel.SIZING,
+                                "K7": speckle_kernel.MAXPROP,
                                 "BL": speckle_kernel.BAND_LABELS}, dev)
         e2e += lines
         launches.update(more)
@@ -3086,7 +3165,7 @@ def main() -> int:
 
     # -- Bayer input, the bilateral tier, bilateral by band ------------------
     bm_kernels = {"K1": (k1, 2), "K2": (stereobm_kernel.KERNEL, 1),
-                  "K3": (speckle_kernel.KERNEL, 1)}
+                  "K3": (speckle_kernel.KERNEL, 1), "SZ": (speckle_kernel.SIZING, 1)}
     with phase("Bayer", seconds):
         check_bayer(torch, color, port, frames, dev)
         line, launches["bayer"] = run_bayer(torch, _build, new_pipe, frames, outputs,
@@ -3108,7 +3187,8 @@ def main() -> int:
                             for i in range(len(frames), PUBLISH_FRAMES)]
         line, launches["publish"] = run_publish(
             torch, port, _build, hostcopy, new_pipe, pframes,
-            {"K1": k1, "K2": stereobm_kernel.KERNEL, "K3": speckle_kernel.KERNEL}, dev)
+            {"K1": k1, "K2": stereobm_kernel.KERNEL, "K3": speckle_kernel.KERNEL,
+             "SZ": speckle_kernel.SIZING}, dev)
         e2e.append(line)
 
     for p in pipes:
@@ -3116,7 +3196,7 @@ def main() -> int:
 
     # -- the SLAM engine end to end -------------------------------------------
     kernels = {"K1": k1, "K2": stereobm_kernel.KERNEL, "K3": speckle_kernel.KERNEL,
-               "K4": sgm_kernel.COST_DOWN, "K4 cost": sgm_kernel.COST,
+               "SZ": speckle_kernel.SIZING, "K4": sgm_kernel.COST_DOWN, "K4 cost": sgm_kernel.COST,
                "K5": sgm_kernel.AGGREGATE, "K6": sgm_kernel.WTA, "K7": speckle_kernel.MAXPROP,
                "BL": speckle_kernel.BAND_LABELS, "DG": sgm_kernel.DIAGONAL}
     with phase("SLAM e2e", seconds):
@@ -3173,9 +3253,9 @@ def main() -> int:
 
     results["K4"]["cost_only"]["launches"] = launches["sgm2"]["K4 cost"]
     kernels = []
-    for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "BL", "DG"):
+    for k in ("K1", "K2", "K3", "SZ", "K4", "K5", "K6", "K7", "BL", "DG"):
         sym, src, tpu = SOURCES[k]
-        path = {"K1": "bm", "K2": "bm", "K3": "bm", "K7": "mesh", "BL": "mesh",
+        path = {"K1": "bm", "K2": "bm", "K3": "bm", "SZ": "bm", "K7": "mesh", "BL": "mesh",
                 "DG": "sgm8"}.get(k, "sgm")
         kernels.append({
             "name": sym, "route": "cuda",

@@ -10,8 +10,9 @@ Labels: each pixel's label is the minimum raster index of its component,
 found by ``iters`` alternating row/column passes, each of which gives every
 run of connected pixels the minimum of the run (:func:`_labels_scan`, the
 plain version of the label kernel in ops/speckle_kernel.py).  Sizes: the
-exact ``bincount(lab)[lab] > T`` decision, counted with ``index_add_`` into a
-preallocated int64 buffer (no host read-back, no int32 overflow).
+exact ``bincount(lab)[lab] > T`` decision and the fill (:func:`_sizing`, the
+plain version of the sizing kernel in ops/speckle_kernel.py), counted with
+``index_add_`` into a preallocated int64 buffer (no host read-back).
 """
 
 from __future__ import annotations
@@ -140,6 +141,16 @@ def _keep_large_components(lab: torch.Tensor, max_speckle_size: int) -> torch.Te
     return (counts[flat] > int(max_speckle_size)).reshape(lab.shape)
 
 
+def _sizing(disp: torch.Tensor, valid: torch.Tensor, lab: torch.Tensor,
+            max_speckle_size: int, fill_value: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(disparity with the pixels of components of at most
+    ``max_speckle_size`` pixels set to ``fill_value``, their validity) from
+    the labels ``lab`` — plain version of ``speckle_kernel.sizing``."""
+    keep = _keep_large_components(lab, max_speckle_size) & valid
+    fill = torch.full((), float(fill_value), device=disp.device)
+    return torch.where(keep, disp, fill), keep
+
+
 def filter_speckles(
     disp: torch.Tensor,
     valid: torch.Tensor,
@@ -158,8 +169,9 @@ def filter_speckles(
       max_diff: neighbouring pixels join a component iff |Δd| ≤ max_diff.
       iters: label-propagation iterations (row + column pass pairs).
 
-    The labels come from ops/speckle_kernel.labels: the kernel for a CUDA
-    tensor, :func:`_labels_scan` for a CPU tensor.
+    The labels come from ops/speckle_kernel.labels and the sizes from
+    ops/speckle_kernel.sizing: the kernels for a CUDA tensor,
+    :func:`_labels_scan` and :func:`_sizing` for a CPU tensor.
 
     Returns (filtered disparity with removed pixels set to ``fill_value``,
     updated valid mask).
@@ -168,6 +180,4 @@ def filter_speckles(
     from ros_gpu_stereo_processor_tpu_torch.ops import speckle_kernel
 
     lab = speckle_kernel.labels(disp, valid, max_diff, iters)
-    keep = _keep_large_components(lab, max_speckle_size) & valid
-    fill = torch.full((), float(fill_value), device=disp.device)
-    return torch.where(keep, disp, fill), keep
+    return speckle_kernel.sizing(disp, valid, lab, max_speckle_size, fill_value)

@@ -1,4 +1,4 @@
-"""Speckle labels and size propagation on the card: the wrappers of
+"""Speckle labels, sizing and size propagation on the card: the wrappers of
 ``csrc/speckle.cu``.
 
 The port of ``ros_gpu_stereo_processor_tpu/ops/speckle_pallas.py`` and its
@@ -14,14 +14,21 @@ two TPU kernels:
 band-local label rounds of the row-sharded filter (parallel/frontend.py),
 gated by the merge loop's device-side ``done`` flag.  It has its own C
 entry and launch counter, so K7's launches are counted apart; a gated
-launch counts as a launch.  Component sizing stays in ops/speckle.py.
+launch counts as a launch.
+
+:func:`sizing` (SZ, no TPU kernel: the JAX package sizes components with
+jnp sorts) takes K3's labels to the filtered disparity and validity of the
+single-device speckle filter: warp-aggregated int32 counts, then one pass
+that keeps and fills.  The row-band filter sizes components its own way
+(``parallel/frontend.py::_band_counts``).
 
 Each function is its op's one dispatch point: a CUDA tensor launches the
 kernel, a CPU tensor runs the plain version of ops/speckle.py
-(``_labels_scan``, ``_max_propagate``, ``_label_rounds``).  Kernels and
-plain versions agree bit for bit at the same round count.  On the card each
-call is one memset and one cooperative launch that runs every round; a
-refused launch raises.
+(``_labels_scan``, ``_max_propagate``, ``_label_rounds``, ``_sizing``).
+Kernels and plain versions agree bit for bit (the walks at the same round
+count).  On the card each walk is one memset and one cooperative launch
+that runs every round, the sizing one memset and two launches; a refused
+launch raises.
 """
 
 from __future__ import annotations
@@ -41,6 +48,8 @@ KERNEL = _build.Kernel(
 )
 MAXPROP = _build.Kernel("speckle_maxprop", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3)
 BAND_LABELS = _build.Kernel("speckle_band_labels", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3)
+SIZING = _build.Kernel("speckle_sizing", [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+                                                                  ctypes.c_float])
 
 
 def labels(
@@ -77,6 +86,37 @@ def _launch(disp: torch.Tensor, valid: torch.Tensor, max_diff: float,
                _build.ptr(conn[0]), _build.ptr(conn[1]), _build.ptr(changed),
                H, W, float(max_diff), int(iters))
     return lab
+
+
+def sizing(disp: torch.Tensor, valid: torch.Tensor, lab: torch.Tensor,
+           max_speckle_size: int, fill_value: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """SZ: (H, W) float32 disparity, bool validity and K3's int32 labels
+    (H·W where invalid, and never where valid) → (the disparity with every
+    pixel of a component of at most ``max_speckle_size`` pixels, and every
+    invalid one, set to ``fill_value``; the bool validity of what is kept).
+    A component's size counts every pixel that carries its label."""
+    if disp.dim() != 2 or valid.shape != disp.shape or lab.shape != disp.shape:
+        raise ValueError(f"sizing wants (H, W) disp, valid and labels; got "
+                         f"{tuple(disp.shape)}, {tuple(valid.shape)} and {tuple(lab.shape)}")
+    if not disp.is_cuda:
+        return speckle_plain._sizing(disp, valid, lab, max_speckle_size, fill_value)
+    if disp.dtype != torch.float32 or valid.dtype != torch.bool or lab.dtype != torch.int32:
+        raise TypeError("the sizing kernel takes float32 disp, bool valid and int32 labels")
+    if not (valid.is_cuda and lab.is_cuda and valid.device == disp.device == lab.device):
+        raise ValueError("disp, valid and labels must be on the same CUDA device")
+    n = disp.numel()
+    if n >= 2**31:
+        raise ValueError("the sizing kernel takes images under 2^31 pixels")
+    disp, valid, lab = disp.contiguous(), valid.contiguous(), lab.contiguous()
+    counts = torch.empty(n, dtype=torch.int32, device=disp.device)
+    out = torch.empty_like(disp)
+    keep = torch.empty_like(valid)
+    # a count lies in [1, n]: any T past that range decides as its end does
+    T = min(max(int(max_speckle_size), -1), n)
+    with torch.cuda.device(disp.device):
+        SIZING(_build.ptr(disp), _build.ptr(valid), _build.ptr(lab), _build.ptr(counts),
+               _build.ptr(out), _build.ptr(keep), n, T, float(fill_value))
+    return out, keep
 
 
 def max_propagate(field: torch.Tensor, conn_x: torch.Tensor, conn_y: torch.Tensor,

@@ -84,6 +84,15 @@ def speckle_model(H: int, W: int, rounds: int) -> Dict:
     return {"bytes": H * W * (4 + 1 + 4), "ops": 2 * 2 * rounds * H * W}
 
 
+def sizing_model(H: int, W: int) -> Dict:
+    """SZ, ``csrc/speckle.cu::speckle_sizing``: the speckle filter's sizing
+    and masking.  Labels (4 bytes), disparity (4) and validity (1) in; the
+    filtered disparity (4) and validity (1) out; ~4 operations a pixel
+    (count, gather, compare, select).  The atomics of the count pass are
+    not in the model: it is what the function must move."""
+    return {"bytes": H * W * (4 + 4 + 1 + 4 + 1), "ops": 4 * H * W}
+
+
 def maxprop_model(H_b: int, W: int, rounds: int) -> Dict:
     """K7, ``csrc/speckle.cu::speckle_maxprop``, on one (H_b, W) band, and
     the band label rounds (BL) beside it: an int32 field and two 1-byte
@@ -148,13 +157,13 @@ def sgm_fused_model(H: int, W: int, nd: int, cost_bytes: int = 2,
 def speckle_structure_analysis(rounds: int, iters: int) -> Dict:
     """What K3's call is made of on the card: one cooperative launch of the
     label walk (row and column passes, persistent over the rounds, stopping
-    on the device once a round changes nothing) and a memset of its flags,
-    then the sizing of the components in plain PyTorch."""
+    on the device once a round changes nothing) and a memset of its flags;
+    the sizing after it is SZ's call (:func:`sizing_model`)."""
     return {
         "structure": "1 cooperative launch of the label walk (grid barriers between "
                      "passes, stops on the device after the last changing round) + "
-                     "1 memset; sizing: index_add_ of ones into H*W int64 counts, "
-                     "then a gather",
+                     "1 memset; sizing (SZ, its own call): 1 memset of H*W int32 "
+                     "counts, a warp-aggregated count pass, a keep-and-fill pass",
         "device_launches_per_call": 2,
         "rounds_needed": rounds,
         "rounds_allowed": iters,

@@ -188,6 +188,7 @@ BOUNDS = {
     "K1": (rl.remap_model(480, 752), 2 * 480 * 752 * 10 / 3.35e9, "0.00215"),
     "K2": (rl.stereobm_fused_model(480, 752, 64), 8 * 480 * 752 * 64 / 67e9, "0.00276"),
     "K3": (rl.speckle_model(480, 752, 12), 480 * 752 * 9 / 3.35e9, "0.00097"),
+    "SZ": (rl.sizing_model(480, 752), 480 * 752 * 14 / 3.35e9, "0.00151"),
     "K4": (rl.sgm_fused_model(480, 752, 128, 2, 1)["K4"],
            (2 * 480 * 752 * 4 + 3 * _VOL) / 3.35e9, "0.0422"),
     "K5": (rl.sgm_fused_model(480, 752, 128, 2, 1)["K5"], _VOL * (2 + 5 / 3) / 3.35e9,

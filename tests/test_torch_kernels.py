@@ -229,9 +229,55 @@ def test_filter_speckles_counts_launches(dev):
     _build.reset_launch_counts()
     d, k = speckle.filter_speckles(disp, valid, 50, 5.0, 16, -1.0)
     assert speckle_kernel.KERNEL.launches == 1
+    assert speckle_kernel.SIZING.launches == 1
     lab = speckle._labels_scan(disp.cpu(), valid.cpu(), 5.0, 16)
     keep = speckle._keep_large_components(lab, 50) & valid.cpu()
     _exact(k.cpu(), keep)
+
+
+def _sizing_labels(kind, shape, dev):
+    """(disp, valid, labels) of one sizing case: K3's converged labels of a
+    speckle case; random unconverged labels (few distinct values, ~20 %
+    sentinels, and invalid pixels that carry a label, which counts them);
+    one component over the whole frame (every pixel on one counter); an
+    all-invalid frame."""
+    H, W = shape
+    n = H * W
+    rng = np.random.default_rng(H * 7919 + W)
+    if kind == "unconverged":
+        lab = rng.integers(0, 30, shape).astype(np.int32)
+        lab[rng.random(shape) < 0.2] = n
+        valid = (lab != n) & (rng.random(shape) > 0.1)
+        disp = (rng.random(shape) * 40).astype(np.float32)
+        return (torch.from_numpy(disp).to(dev), torch.from_numpy(valid).to(dev),
+                torch.from_numpy(lab).to(dev))
+    if kind == "k3":
+        disp, valid = _speckle_case(shape)
+    else:
+        disp = np.full(shape, 12.5, np.float32)
+        valid = np.full(shape, kind == "whole", bool)
+    disp, valid = torch.from_numpy(disp).to(dev), torch.from_numpy(valid).to(dev)
+    return disp, valid, speckle_kernel.labels(disp, valid, 5.0, 64)
+
+
+@pytest.mark.parametrize("kind", ["k3", "unconverged", "whole", "invalid"])
+@pytest.mark.parametrize("shape", [(37, 301), (1, 300), (300, 1), (375, 1242)])
+def test_sizing_kernel(dev, shape, kind):
+    """SZ against its plain version, bit for bit, at T 0, 800, n − 1 and n:
+    one launch a call."""
+    disp, valid, lab = _sizing_labels(kind, shape, dev)
+    n = disp.numel()
+    if kind == "whole":
+        assert not bool(lab.any())
+    if kind == "invalid":
+        assert bool((lab == n).all())
+    for T, fill in ((0, -1.0), (800, -1.0), (n - 1, 15.0), (n, -1.0)):
+        before = speckle_kernel.SIZING.launches
+        d, k = speckle_kernel.sizing(disp, valid, lab, T, fill)
+        assert speckle_kernel.SIZING.launches == before + 1
+        want_d, want_k = speckle._sizing(disp, valid, lab, T, fill)
+        _exact(k, want_k)
+        _exact(d, want_d)
 
 
 def test_bm_lr_check_kernel(dev):

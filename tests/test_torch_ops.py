@@ -299,6 +299,16 @@ def test_keep_decision_exact_on_unconverged_labels():
         np.testing.assert_array_equal(got, want)
 
 
+def test_sizing_refuses_mismatched_shapes():
+    disp, valid = _speckle_case((12, 20))
+    lab = speckle_kernel.labels(_t(disp), _t(valid), 5.0, 8)
+    with pytest.raises(ValueError, match="sizing wants"):
+        speckle_kernel.sizing(_t(disp), _t(valid), lab[:, :-1], 10, -1.0)
+    with pytest.raises(ValueError, match="sizing wants"):
+        speckle_kernel.sizing(_t(disp).reshape(-1), _t(valid).reshape(-1), lab.reshape(-1),
+                              10, -1.0)
+
+
 # ---------------------------------------------------------------------------
 # colormap, reprojection, wire codecs
 # ---------------------------------------------------------------------------
