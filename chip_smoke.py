@@ -35,7 +35,13 @@ CUDA card with ``sm_90a``), ``nvcc`` and PyTorch built for CUDA.  It
      call's longest chain) and K6 winner-take-all
      over 2, 4 and 8 paths at 64 and 128
      disparities with quantised storage and at 64 with float32 storage (P1
-     7.5, P2 93.25), all exact; K7 max-propagation on one band of the
+     7.5, P2 93.25), all exact; the same again on a pair of the
+     ``middlebury-sgm8`` benchmark configuration's scene at its 304
+     disparities, 1988 rows and half its 2880 columns (the plain K6 does
+     not fit the card beside the check's volumes at full size), where DG
+     takes its two-pass walk and K6 lanes runs of 12 (rows
+     ``at_1440x1988_304d`` of K4, K5, DG and K6; run last of all, after
+     the bench); K7 max-propagation on one band of the
      4-band split (120×752, its field and masks built by the row-sharded
      speckle filter from a BM frame's disparity) and the band label rounds
      beside it, exact at the same kinds of round counts (up to 480 and 64);
@@ -285,6 +291,11 @@ BANDS = 4
 SLABS = ((64, BANDS), (128, 8))   # (disparities, slabs): BM defaults; BASELINE config 3
 BAND_ROWS = 134     # a mesh band's launch: 480 / BANDS rows and 2 x 7 halo rows
 SIZING_KITTI = (375, 1242)   # SZ's second shape: KITTI's rectified frame
+SGM_WIDE = "middlebury-sgm8"   # the benchmark configuration of the SGM kernels' second shape
+SGM_WIDE_SEED = 2**33 + 23
+# its full height and half its width: at 2880x1988 the plain K6's int64 (H, W, nd)
+# temporaries (13 GiB each) beside the check's volumes ran out of the card's 80 GB
+SGM_WIDE_SHAPE = (1988, 1440)
 KERNEL_REPS = 20
 PLAIN_REPS = 3
 PROFILER_WINDOWS = 8   # windows tried when the profiler drops a window's events
@@ -401,9 +412,9 @@ def device_cost(torch, fn, reps, calls=1, launches=0):
 def timed(torch, fn, plain, launches, reps=KERNEL_REPS, calls=1, split=()):
     """A kernel row's times: host-inclusive ``ms`` (CUDA events), the
     profiler's ``device_ms`` and device launches per call, and the plain
-    version's ms; for each name in ``split``, ``<name>_device_ms``: the
-    device time per call of the kernels whose name holds it, from the same
-    profiler window.  Each wrapper call must make exactly ``launches``
+    version's ms (none without ``plain``); for each name in ``split``,
+    ``<name>_device_ms``: the device time per call of the kernels whose name
+    holds it, from the same profiler window.  Each wrapper call must make exactly ``launches``
     device launches (kernels, memsets and copies): fewer is a window that
     lost events (tried again), more fails."""
     rows = device_rows(torch, fn, reps, launches * calls)
@@ -418,7 +429,8 @@ def timed(torch, fn, plain, launches, reps=KERNEL_REPS, calls=1, split=()):
         out[f"{name}_device_ms"] = sum(t for k, _, t in rows if name in k) / 1e3 / n
         if out[f"{name}_device_ms"] == 0:
             raise AssertionError(f"no device time under a kernel named {name}")
-    out["plain_ms"] = cuda_ms(torch, plain, PLAIN_REPS) / calls
+    if plain is not None:
+        out["plain_ms"] = cuda_ms(torch, plain, PLAIN_REPS) / calls
     return out
 
 
@@ -580,7 +592,9 @@ def check_sgm_kernels(torch, sgm_kernel, stereobm, rl, rect, cfg, p1, p2):
     """K4 (and its cost stage alone, the 2-path route's), K5 (the frame's
     three calls), DG (the 8-path frame's two calls) and K6 over 2, 4 and 8
     paths against their plain versions on the card, exact; then their times
-    and bounds (``rl``: the port's utils/roofline.py)."""
+    and bounds (``rl``: the port's utils/roofline.py), on ``rect``'s
+    (H, W)."""
+    H, W = rect[0].shape
     lf = stereobm.prefilter(rect[0], cfg)
     rf = stereobm.prefilter(rect[1], cfg)
     cdt, edt = sgm_kernel.storage_dtypes(cfg, p1, p2, True)
@@ -629,27 +643,30 @@ def check_sgm_kernels(torch, sgm_kernel, stereobm, rl, rect, cfg, p1, p2):
     def dg(fn):
         return lambda: [fn(cost, p1, p2, dx, edt) for dx in (1, -1)]
 
-    # per call; K5's is the mean of the frame's 3 calls, DG's of its 2
+    # per call; K5's is the mean of the frame's 3 calls, DG's of its 2; the
+    # plain versions are timed after every profiler window (at 1988 rows
+    # their ~10^5 launches left the profiler losing an event a window)
     work = {n: rl.sgm_fused_model(H, W, cfg.num_disparities, cost.element_size(),
                                   down.element_size(), paths=n) for n in pairs}
+    plain = {
+        "K4": (lambda: sgm_kernel.cost_and_down_plain(lf, rf, cfg, p1, p2, cdt, edt), 1),
+        "K5": (k5(sgm_kernel.aggregate_plain), 3),
+        "DG": (dg(sgm_kernel.aggregate_diagonal_plain), 2),
+        "K6": (lambda: sgm_kernel.wta_plain(cost, pairs[4], cfg), 1),
+    }
     times = {
         "K4": timed(torch, lambda: sgm_kernel.cost_and_down(lf, rf, cfg, p1, p2, cdt, edt),
-                    lambda: sgm_kernel.cost_and_down_plain(lf, rf, cfg, p1, p2, cdt, edt), 2,
-                    split=("sgm_cost", "sgm_walk")),
-        "K5": timed(torch, k5(sgm_kernel.aggregate), k5(sgm_kernel.aggregate_plain), 1,
-                    calls=3),
-        "DG": timed(torch, dg(sgm_kernel.aggregate_diagonal),
-                    dg(sgm_kernel.aggregate_diagonal_plain), 1, calls=2),
-        "K6": timed(torch, lambda: sgm_kernel.wta(cost, pairs[4], cfg),
-                    lambda: sgm_kernel.wta_plain(cost, pairs[4], cfg), 1),
+                    None, 2, split=("sgm_cost", "sgm_walk")),
+        "K5": timed(torch, k5(sgm_kernel.aggregate), None, 1, calls=3),
+        "DG": timed(torch, dg(sgm_kernel.aggregate_diagonal), None, 1, calls=2),
+        "K6": timed(torch, lambda: sgm_kernel.wta(cost, pairs[4], cfg), None, 1),
     }
     # each walk's device time and time per step (one pixel of its lines; a
     # DG call's longest chain is sgm_kernel.diagonal_steps: min(H, W) steps
     # where both directions walk at once, twice that down and back up)
     times["K4"]["down_walk_step_ns"] = times["K4"]["sgm_walk_device_ms"] * 1e6 / H
     times["K4"]["cost_only"] = timed(
-        torch, lambda: sgm_kernel.cost_volume(lf, rf, cfg, p2, cdt),
-        lambda: sgm_kernel.cost_volume_plain(lf, rf, cfg, p2, cdt), 1)
+        torch, lambda: sgm_kernel.cost_volume(lf, rf, cfg, p2, cdt), None, 1)
     times["K4"]["cost_only"]["bound_ms"], times["K4"]["cost_only"]["bound_by"] = \
         rl.model_bound(work[2]["K4 cost"])
     times["K5"]["calls"] = {}
@@ -671,6 +688,10 @@ def check_sgm_kernels(torch, sgm_kernel, stereobm, rl, rect, cfg, p1, p2):
                             launches=1)
         b_ms, by = rl.model_bound(work[n]["K6"])
         times["K6"]["paths"][n] = {"device_ms": ms, "bound_ms": b_ms, "bound_by": by}
+    for k, (fn, calls) in plain.items():
+        times[k]["plain_ms"] = cuda_ms(torch, fn, PLAIN_REPS) / calls
+    times["K4"]["cost_only"]["plain_ms"] = cuda_ms(
+        torch, lambda: sgm_kernel.cost_volume_plain(lf, rf, cfg, p2, cdt), PLAIN_REPS)
     out = {}
     for k in ("K4", "K5", "DG", "K6"):
         b_ms, by = rl.model_bound(work[8][k])
@@ -678,6 +699,29 @@ def check_sgm_kernels(torch, sgm_kernel, stereobm, rl, rect, cfg, p1, p2):
                   "library_ms": None}
     out["K6"]["bound_ms"], out["K6"]["bound_by"] = rl.model_bound(work[4]["K6"])
     return out
+
+
+def check_sgm_wide(torch, port, sgm_kernel, stereobm, rl, dev):
+    """:func:`check_sgm_kernels` past 256 disparities at Middlebury 2014's
+    height (``SGM_WIDE_SHAPE``), on one pair of the ``SGM_WIDE`` benchmark
+    configuration's scene (``stereo_bench/inputs.py``, already rectified):
+    DG's two-pass walk and K6's runs of 12, which the 752×480 cases do not
+    reach."""
+    from stereo_bench import inputs, spec
+
+    wide = spec.load_json("configs", SGM_WIDE)
+    m = wide["matcher"]
+    lefts, rights = inputs.pool(wide, SGM_WIDE_SEED, 1, SGM_WIDE_SHAPE)
+    pair = torch.from_numpy(np.stack([lefts[0], rights[0]])).to(dev)
+    cfg = port.StereoBMConfig(**m)
+    torch.cuda.empty_cache()
+    res = check_sgm_kernels(torch, sgm_kernel, stereobm, rl, pair, cfg, m["sgm_p1"], m["sgm_p2"])
+    del pair
+    torch.cuda.empty_cache()
+    storage = sgm_kernel.storage_dtypes(cfg, m["sgm_p1"], m["sgm_p2"], True)
+    log(f"SGM kernels exact at {tuple(lefts[0].shape)}, {m['num_disparities']} disparities "
+        f"({SGM_WIDE}), storage {storage}, DG steps {res['DG']['steps']}: " + json.dumps(res))
+    return res
 
 
 def check_sizing(torch, port, speckle, speckle_kernel, stereobm_kernel, rl, disp, valid, sp_cfg,
@@ -3250,6 +3294,12 @@ def main() -> int:
     with phase("bench", seconds):
         line, launches["bench"] = run_bench(torch, port, bench, dev)
         e2e.append(line)
+
+    # -- K4–K6 past 256 disparities: last, since after its plain versions'
+    # ~10^5 launches the profiler lost one device event a window on the card
+    with phase("K4-K6 wide", seconds):
+        for k, row in check_sgm_wide(torch, port, sgm_kernel, stereobm, rl, dev).items():
+            results[k]["at_1440x1988_304d"] = row
 
     results["K4"]["cost_only"]["launches"] = launches["sgm2"]["K4 cost"]
     kernels = []

@@ -19,7 +19,15 @@
 // and, with uniqueness, the smallest total outside best +- 1 are further warp
 // minima.  (A first design with one thread per pixel looping over d read each
 // pixel's nd values from a different cache line per lane and ran slower than
-// the plain version.)
+// the plain version; lane l holding disparities l, l + 32, ..., each load of
+// the warp 32 consecutive values, ran 1.2-1.6x slower than runs of K
+// consecutive values at 2880x1988, 256 and 304 disparities.)
+//
+// A lane's run K is nd / 32 rounded up to 1, 2, 4, 8, 12, 16 or 32: the
+// walks' widths (sgm_walk.cuh) and 12 between 8 and 16.  On an H100 80GB HBM3
+// at 700 W, 2880x1988 and 304 disparities, K = 16 (13 of 32 lanes idle) took
+// 6.5 ms a call, 0.0037 ns a cell, against 0.0023-0.0025 at 256 (K = 8); K =
+// 12 takes 4.45 ms, 0.0026 ns a cell; K = 10 took 9.4-9.6 ms.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -117,6 +125,14 @@ __global__ void sgm_wta_kernel(const CostT* __restrict__ cost, const ExcT* __res
   }
 }
 
+// f(std::integral_constant<int, K>{}) for K = nd / 32 rounded up to 1, 2, 4,
+// 8, 12, 16, 32: a lane's run of disparities in the WTA.
+template <typename F>
+cudaError_t with_wta_width(int nd, F&& f) {
+  if (nd > 256 && nd <= 384) return f(std::integral_constant<int, 12>{});
+  return with_lane_width(nd, static_cast<F&&>(f));
+}
+
 // exc_v is unused with 2 paths, exc_d1 and exc_d2 with fewer than 8.
 template <typename CostT, typename ExcT>
 cudaError_t wta(const void* cost, const void* ev, const void* eh, const void* ed1,
@@ -134,7 +150,7 @@ cudaError_t wta(const void* cost, const void* ev, const void* eh, const void* ed
   float* d = static_cast<float*>(disp);
   float* b = static_cast<float*>(best);
   float* x = static_cast<float*>(excl);
-  return with_lane_width(nd, [&](auto k) {
+  return with_wta_width(nd, [&](auto k) {
     constexpr int K = decltype(k)::value;
     auto launch = [&](auto kernel) {
       kernel<<<grid, kWtaThreads, 0, s>>>(c, v, h, d1, d2, d, b, x, H, W, nd, mind, r, refine, uniq);

@@ -25,7 +25,9 @@ reference's orchestrator ``StereoProcessor::imageCb``
     (the header's ``seq``) and its wait for the oldest frame,
     ``step.in_flight_wait``, and ``enqueue_send`` records
     ``publish.enqueue`` (the header's ``seq``) with its children
-    ``publish.wire``, ``publish.copy_start`` and ``publish.submit``.
+    ``publish.wire``, ``publish.copy_start`` and ``publish.submit``, and
+    counts under ``publish.bytes`` (tagged with the output) the bytes each
+    send copies to the host.
 
 A pipeline runs on the card (``device="cuda"``, the default) unless the
 caller asks for ``device="cpu"``.  There is no device switch beyond that:
@@ -103,6 +105,7 @@ _ENQUEUE = timing.intern("publish.enqueue")
 _WIRE = timing.intern("publish.wire")
 _COPY_START = timing.intern("publish.copy_start")
 _SUBMIT = timing.intern("publish.submit")
+_PUBLISH_BYTES = timing.intern("publish.bytes", timing.COUNTER)
 
 SIDES = ("left", "right")
 
@@ -635,6 +638,9 @@ class StereoPipeline:
         w = timing.begin(_SUBMIT, h.seq) if s >= 0 else -1
         start = 0
         for name, ts, build in sends:
+            if s >= 0:
+                timing.count(_PUBLISH_BYTES, sum(t.nbytes for t in ts),
+                             tag=timing.intern(name, timing.TAG))
             self.senders.enqueue_copy(name, copy.part(start, start + len(ts)), build, h.seq)
             start += len(ts)
         if w >= 0:

@@ -14,7 +14,9 @@ gap of the device trace.  Then one JSON line, and ``FILE`` where given:
 the per-layer numbers of ``stereo_bench/program.py``, the idle gaps named
 from inside the program, the chain of spans of each pair published in the
 window, launches by kernel, graph captures, the ring's and pairer's
-counts, the gauges, and each span's count and wall ms in the window.
+counts, the gauges, the publish bytes and DG launches a pair stepped, the
+DG walk the device trace names, the bytes of one step's SGM volumes (from
+the configuration), and each span's count and wall ms in the window.
 
 The second form times the recorder's calls on this host, one thread, on
 and off, in ns a call.
@@ -35,11 +37,13 @@ from stereo_bench import run as bench_run  # noqa: E402  (its clock starts the s
 
 
 def served(argv) -> int:
-    from stereo_bench import program
+    from stereo_bench import program, spec
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--out")
+    ap.add_argument("--workload", required=True)
     args, rest = ap.parse_known_args(argv)
+    rest = ["--workload", args.workload] + rest
     with program.recording() as runs:
         rc = bench_run.main(rest)
     if rc != 0 or not runs:
@@ -56,6 +60,9 @@ def served(argv) -> int:
         "counters": {k: v for k, v in snap.counters.items() if v},
         "gauges": {g: program.gauge(snap, g, run)
                    for g in ("ring.depth", "staged.depth", "sender.depth")},
+        "per_pair": per_pair(snap),
+        "dg_walk_ms_per_pair": dg_walks(run.trace),
+        "sgm_volume_bytes": volume_bytes(spec.cell(args.workload)["config_data"]),
         "spans": {name: program.span_ms(snap, name, run) for name in spans},
         "copy_waits_that_waited": program.waited_share(snap, run),
         "records": int(len(snap.records["name"])),
@@ -68,6 +75,40 @@ def served(argv) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(line + "\n")
     return 0
+
+
+def per_pair(snap) -> dict:
+    """The publish layer's bytes and DG's launches over the whole recording
+    (warm-up included) a pair stepped: the pairs of its ``step.batch``
+    spans and one a ``step.frame``."""
+    r = snap.records
+    pairs = int(r["n"][r["name"] == snap.id("step.batch")].sum()
+                + (r["name"] == snap.id("step.frame")).sum())
+    return {"pairs_stepped": pairs,
+            **{k: v / pairs for k, v in snap.counters.items()
+               if pairs and k.startswith(("publish.bytes", "launches.sgm_aggregate_diagonal"))}}
+
+
+def dg_walks(summary):
+    """Device ms a pair of DG's two walks, by the kernel the device trace
+    names (``csrc/sgm_diagonal.cu``): the two-pass walk and the pair walk;
+    None untraced."""
+    if summary is None:
+        return None
+    return {"two_pass": summary.ms_per_pair(("sgm_diagonal_kernel",)),
+            "pair": summary.ms_per_pair(("sgm_diagonal_pair_kernel",))}
+
+
+def volume_bytes(cfg) -> int:
+    """Bytes of the volumes one SGM call hands K6 on the configuration's
+    image, at the storage widths ``costmodel.sgm_storage_bytes`` gives: the
+    cost volume and one excess volume for each pair of paths."""
+    from stereo_bench import costmodel
+
+    m = cfg["matcher"]
+    cb, eb = costmodel.sgm_storage_bytes(m)
+    n = cfg["image"]["height"] * cfg["image"]["width"] * m["num_disparities"]
+    return n * (cb + m["sgm_paths"] // 2 * eb)
 
 
 def cost(records: int) -> int:

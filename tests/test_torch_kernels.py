@@ -386,9 +386,9 @@ def _walk_volumes(shape, nd, mode, seed):
 
 
 # every width of a lane's share (nd / 32 rounded up to 1, 2, 4, 8, 16, 32
-# disparities), with and without disparities past nd (48)
+# disparities), with and without disparities past nd (48, 304)
 @pytest.mark.parametrize("mode", list(WALK_MODES))
-@pytest.mark.parametrize("nd", [16, 48, 128, 256, 512, 1024])
+@pytest.mark.parametrize("nd", [16, 48, 128, 256, 304, 512, 1024])
 @pytest.mark.parametrize("shape", WALK_SHAPES)
 def test_walk_kernel(dev, shape, nd, mode):
     """K5 in all eight (vertical, reverse, exc_in) combinations against its
@@ -498,15 +498,16 @@ def test_sgm_fused_on_card_equals_oracle(dev, kw, num_paths):
 
 
 # the diagonal, cost-only and WTA cases: every storage mode, every width of
-# a lane's share up to 8 (nd 16, 48: disparities past nd, 128, 256), lines
+# a lane's share up to 16 (nd 16, 48: disparities past nd, 128, 256, 304:
+# past nd at 16 a lane, and DG's two-pass walk), lines
 # of 1 and 2 pixels and H ≠ W both ways, a width no block of columns
 # divides, and the whole image
 PATH_SHAPES = [(1, 301), (2, 17), (17, 2), (37, 301), (480, 752)]
-PATH_NDS = [16, 48, 128, 256]
+PATH_NDS = [16, 48, 128, 256, 304]
 
 
 # DG's: the pair walk's (nd ≤ 256: 64 besides PATH_NDS) and the two-pass
-# walk's (272, 512, 1024)
+# walk's (272, 512, 1024 besides 304)
 DIAG_NDS = PATH_NDS + [64, 272, 512, 1024]
 
 
